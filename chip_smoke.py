@@ -5,33 +5,47 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build   — nvcc builds every kernel of the path from hbbft_tpu_torch/csrc/.
+1. build   — nvcc builds every kernel source of hbbft_tpu_torch/csrc/ in
+             parallel (fq_rns.cu: the field multiply and power;
+             tower_fused.cu: the fused tower op, Miller doubling and
+             final-exponentiation hard part).
 2. kernels — each kernel against its plain PyTorch version on the card,
              bit for bit (tolerance 0: the arithmetic is exact integer
-             float32), plus a sample against Python-int arithmetic mod Q.
-3. main    — the threshold-decryption crypto path of one N=100, f=33
-             HoneyBadger epoch through ``TorchBackend()``: ciphertext
-             checks (one tampered), the epoch's 10k decryption-share
-             generations, one 2^17-item engine chunk of share verifies with
-             planted forgeries, and 10k Lagrange combines (k=34); verdicts
-             and plaintexts are checked exactly.  Kernel launch counts are
-             zeroed just before and read just after.
-4. a ``{"kernels": [...]}`` line: launches on the main path, largest
-   difference from the plain version (phase 2's widths and the main
-   path's, partial blocks included), median kernel time at the main
+             float32), plus a field sample against Python-int arithmetic
+             mod Q.
+3. path    — the threshold-decryption crypto path of one N=100, f=33
+             HoneyBadger epoch through ``TorchBackend()`` (the first slice's
+             path, now on the fused chain): ciphertext checks (one
+             tampered), the epoch's 10k decryption-share generations, one
+             2^17-item engine chunk of share verifies with planted forgeries,
+             and 10k Lagrange combines (k=34); verdicts and plaintexts are
+             checked exactly.  Then a short pass with
+             HBBFT_TPU_NO_FUSED_TOWER=1 (the stacked arm) must give the fused
+             arm's verdicts.
+4. epoch   — the main path: whole N=100 HoneyBadger epochs through the
+             port's ``ArrayHoneyBadgerNet`` on ``TorchBackend()``; every node
+             must output the same Batch holding every contribution, and the
+             native host kernels of the RS/Merkle plane must have been built.
+             Kernel launch counts are zeroed just before each of phases 3
+             and 4 and read just after; every kernel must have launched.
+5. a ``{"kernels": [...]}`` line: launches on the main path, largest
+   difference from the plain version (phase 2's widths and the main path's,
+   one lane and partial blocks included), median kernel time at the main
    path's mean launch width, the plain version's time and the bound (the
    least time the card could take: see ``bound``).
-5. per-phase seconds, device_dispatches, and the card's name and power
+6. per-phase seconds, device_dispatches, and the card's name and power
    limit; the last line is ``{"ok": true, "device": {...}}``.
 
-``--profile`` runs the main path a second time with each backend phase
-under torch.profiler (kernel time by name, device busy share).  The
-whole result is also written to chiprun_out/chip_smoke.json.
+``--profile`` runs phase 3 (each backend phase) and one epoch of phase 4 a
+second time under torch.profiler (kernel time by name, device busy
+share).  The whole result
+is also written to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import random
@@ -75,6 +89,11 @@ COMBINES = 10_000
 FORGED = 3
 MUL_LANES = 1 << 17
 POW_LANES = 4096
+EPOCHS = 2
+PAYLOAD = 128  # bytes per contribution (run_epochs' default)
+#: widths the fused tower kernels are checked at besides the main path's
+#: mean: one lane, and 1001 lanes (three lanes per block, the last partial)
+TOWER_WIDTHS = (1, 1001)
 
 
 def bound(lanes: int, products: int, ew_ops: int, rows_moved: int) -> tuple:
@@ -173,10 +192,45 @@ def phase_kernels(dev, rng, mul_lanes: int, pow_lanes: int) -> dict:
     return out
 
 
+def tower_inputs(dev, rng, coeffs: int, n: int):
+    """A packed (coeffs, n, 79) operand of lazy-domain rows on the card."""
+    import torch
+
+    from hbbft_tpu_torch.ops import fq_rns as R
+
+    rows = lazy_rows(rng, coeffs * n, R)[0]
+    return torch.as_tensor(rows.reshape(coeffs, n, R.NLIMBS), device=dev)
+
+
+def check_tower_kernels(dev, rng, widths, errs: dict) -> None:
+    """Each fused tower kernel (all seven kinds of the op kernel) against
+    its plain version at each width in ``widths``; the largest difference
+    is folded into ``errs``."""
+    from hbbft_tpu_torch.ops import tower_fused as TF, tower_fused_cuda as TK
+
+    for n in widths:
+        for idx, kind in enumerate(TF.OP_KINDS):
+            c = TF._OP_BODY[kind][1]
+            a, b = tower_inputs(dev, rng, c, n), tower_inputs(dev, rng, c, n)
+            errs["tower_op"] = max(errs.get("tower_op", 0.0), same(
+                f"tower_op {kind}", TK.tower_op(idx, a, b), TF.op_plain(kind, a, b)))
+        f, r, p = (tower_inputs(dev, rng, c, n) for c in (12, 6, 2))
+        got_f, got_r = TK.miller_dbl(f, r, p)
+        want_f, want_r = TF.dbl_plain(f, r, p)
+        errs["miller_dbl"] = max(errs.get("miller_dbl", 0.0),
+                                 same("miller_dbl f", got_f, want_f),
+                                 same("miller_dbl R", got_r, want_r))
+        m = tower_inputs(dev, rng, 12, n)
+        errs["hard_exp"] = max(errs.get("hard_exp", 0.0),
+                               same("hard_exp", TK.hard_exp(m), TF.hard_plain(m)))
+
+
 def phase_main(backend, rng, n: int, f: int, verify_items: int, combines: int,
-               forged: int, wrap=None) -> dict:
+               forged: int, wrap=None, keep=None) -> dict:
     """The threshold-decryption path of one epoch through the backend.
-    ``wrap(phase)``, when given, is a context manager around each phase."""
+    ``wrap(phase)``, when given, is a context manager around each phase;
+    ``keep``, when given, a dict that receives the ciphertexts, verify
+    items and verdicts for ``phase_stacked_arm``."""
     from hbbft_tpu_torch.crypto.keys import Ciphertext, DecryptionShare
 
     group = backend.group
@@ -254,8 +308,91 @@ def phase_main(backend, rng, n: int, f: int, verify_items: int, combines: int,
         if pt != msg_of[id(ct)]:
             raise AssertionError("a combined plaintext differs from the encrypted one")
     log(f"combine_dec_shares_batch: {len(plains)} combines (k={k}), every plaintext equal")
+    if keep is not None:
+        keep.update(cts=cts + [tampered], ct_ok=ok, items=items, want=want)
     return {"seconds": secs, "verify_items": len(items), "forged_items": want.count(False),
             "combines": len(plains)}
+
+
+def phase_stacked_arm(state, n_items: int, device=None) -> dict:
+    """HBBFT_TPU_NO_FUSED_TOWER=1 (the stacked composition) against the
+    fused arm: the same verdicts on phase 3's ciphertexts and on the first
+    ``n_items`` share verifies (forgeries included)."""
+    from hbbft_tpu_torch.ops.backend import TorchBackend
+
+    items, want = state["items"][:n_items], state["want"][:n_items]
+    t = time.perf_counter()
+    fused = TorchBackend(device).verify_dec_shares(items)
+    fused_s = time.perf_counter() - t
+    os.environ["HBBFT_TPU_NO_FUSED_TOWER"] = "1"
+    try:
+        stacked = TorchBackend(device)
+        ct_ok = stacked.verify_ciphertexts(state["cts"])
+        t = time.perf_counter()
+        dec_ok = stacked.verify_dec_shares(items)
+        stacked_s = time.perf_counter() - t
+    finally:
+        del os.environ["HBBFT_TPU_NO_FUSED_TOWER"]
+    if ct_ok != state["ct_ok"] or dec_ok != fused or fused != want:
+        raise AssertionError("the stacked and fused arms disagree on a verdict")
+    if stacked.counters.fused_tower_calls or not stacked.counters.stacked_chain_pallas_calls:
+        raise AssertionError("HBBFT_TPU_NO_FUSED_TOWER=1 did not route the stacked arm")
+    log(f"stacked arm: {len(ct_ok)} ciphertext and {len(items)} share verdicts "
+        f"({want.count(False)} forged) equal the fused arm's; verify_dec_shares "
+        f"{fused_s:.3f} s fused, {stacked_s:.3f} s stacked")
+    return {"ciphertexts": len(ct_ok), "dec_items": len(items),
+            "dec_seconds": {"fused": fused_s, "stacked": stacked_s}}
+
+
+def phase_epoch(backend, seed: int, n: int, epochs: int, card: str) -> dict:
+    """Whole N-node epochs through the port's engine: every node must output
+    the same Batch, holding every node's contribution."""
+    import torch
+
+    from hbbft_tpu_torch import native
+    from hbbft_tpu_torch.engine.array_engine import ArrayHoneyBadgerNet
+
+    t = time.perf_counter()
+    net = ArrayHoneyBadgerNet(range(n), backend=backend, seed=seed)
+    setup = time.perf_counter() - t
+    log(f"epoch setup (N={n} key generation on the host): {setup:.2f} s")
+    out = {"setup_seconds": setup, "epochs": []}
+    for _ in range(epochs):
+        contribs = {nid: net.rng.getrandbits(8 * PAYLOAD).to_bytes(PAYLOAD, "big")
+                    for nid in net.ids}
+        t = time.perf_counter()
+        batches = net.run_epoch(contribs)
+        if backend.device.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        first = batches[net.ids[0]]
+        if sorted(batches) != net.ids or any(b != first for b in batches.values()):
+            raise AssertionError("the nodes output different Batches")
+        if first.contributions != contribs:
+            raise AssertionError("the Batch does not hold every contribution")
+        rep = dataclasses.asdict(net.reports[-1])
+        out["epochs"].append({"seconds": secs, "report": rep})
+        log(f"epoch {first.epoch} N={n} [{card}]: {secs:.3f} s, all {n} nodes output the "
+            f"same Batch of {len(first.contributions)} contributions")
+        log(f"  EpochReport: {json.dumps(rep)}")
+    # the RS/Merkle plane ran on the port's native C kernels, not hashlib
+    if not (native.available() and native.sha256_available()):
+        raise AssertionError("the native host kernels (gf256, sha256) were not built")
+    c = backend.counters.snapshot()
+    out["device_dispatches"] = c["device_dispatches"]
+    out["device_seconds"] = {k[len("device_seconds_"):]: v for k, v in c.items()
+                             if k.startswith("device_seconds_") and v}
+    out["host_buckets"] = {k[len("host_bucket_"):]: v for k, v in c.items()
+                           if k.startswith("host_bucket_") and v}
+    out["counters"] = {k: c[k] for k in (
+        "device_seconds", "host_seconds", "pairing_checks", "rlc_groups", "fused_tower_calls",
+        "fused_chain_pallas_calls", "fused_chain_field_muls", "dec_shares_verified",
+        "ciphertexts_verified", "dec_shares_combined")}
+    log(f"epoch device_dispatches={c['device_dispatches']} [{card}]")
+    log(f"epoch device seconds by kind [{card}]: {json.dumps(out['device_seconds'])}")
+    log(f"epoch host buckets [{card}]: {json.dumps(out['host_buckets'])}")
+    log(f"epoch counters [{card}]: {json.dumps(out['counters'])}")
+    return out
 
 
 def same(name: str, got, want) -> float:
@@ -264,7 +401,7 @@ def same(name: str, got, want) -> float:
 
     torch.cuda.synchronize()
     e = float((got - want).abs().max())
-    log(f"{name}: {got.shape[0]} lanes, max |kernel - plain| = {e}")
+    log(f"{name}: {got.shape[-2]} lanes, max |kernel - plain| = {e}")
     if not torch.equal(got, want):
         raise AssertionError(f"{name} differs from its plain version")
     return e
@@ -322,45 +459,133 @@ def kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list:
     return rows
 
 
-def profile_main(backend, rng, card: str, out_path: str) -> dict:
-    """The main path once more, each backend phase under torch.profiler:
-    the wall time, the device's kernel time and busy share, the share of
-    the fq_rns kernels, and the kernels that take the most device time."""
+def tower_kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list:
+    """The fused tower kernels at the main path's mean launch width: held
+    to their plain versions there, then timed beside the bound.  The op
+    kernel runs the kind the main path runs, fq12_mul (the cross-pair
+    merge).  The bound counts the Fq products (``bound``'s per-product
+    work); the recombination adds between them are left out, so it is a
+    little low."""
+    from hbbft_tpu_torch.ops import pairing_chain as PC, tower_fused as TF
+    from hbbft_tpu_torch.ops import tower_fused_cuda as TK
+
+    width = {k: max(1, lanes[k] // max(1, launches[k])) for k in ("tower_op", "miller_dbl",
+                                                                   "hard_exp")}
+    src, ref = "hbbft_tpu_torch/csrc/tower_fused.cu", "hbbft_tpu/ops/tower_fused.py"
+    rows = []
+
+    def row(name, replaces, n, products, rows_moved, fn, plain, got, want, reps=7):
+        errs[name] = max(errs.get(name, 0.0), *(same(f"{name} (mean width)", g, w)
+                                       for g, w in zip(got, want)))
+        ms = time_ms(fn, reps=reps)
+        plain_ms = time_ms(plain, reps=min(reps, 3))
+        bound_ms, bound_by = bound(n, products, products * MUL_EW_OPS, rows_moved)
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": f"{ref}:{replaces}",
+            "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "lanes": n,
+        })
+
+    n = width["tower_op"]
+    a, b = tower_inputs(dev, rng, 12, n), tower_inputs(dev, rng, 12, n)
+    k = TF.OP_KINDS.index("fq12_mul")
+    row("tower_op", 420, n, 54, 36, lambda: TK.tower_op(k, a, b),
+        lambda: TF.op_plain("fq12_mul", a, b),
+        [TK.tower_op(k, a, b)], [TF.op_plain("fq12_mul", a, b)])
+
+    n = width["miller_dbl"]
+    f, r, p = (tower_inputs(dev, rng, c, n) for c in (12, 6, 2))
+    row("miller_dbl", 515, n, PC.DBL_FIELD_MULS, 38, lambda: TK.miller_dbl(f, r, p),
+        lambda: TF.dbl_plain(f, r, p), TK.miller_dbl(f, r, p), TF.dbl_plain(f, r, p))
+
+    n = width["hard_exp"]
+    m = tower_inputs(dev, rng, 12, n)
+    row("hard_exp", 619, n, TF.analytic_hard_field_muls(), 24, lambda: TK.hard_exp(m),
+        lambda: TF.hard_plain(m), [TK.hard_exp(m)], [TF.hard_plain(m)], reps=5)
+    return rows
+
+
+def reset_launches() -> None:
+    from hbbft_tpu_torch.ops import fq_rns_cuda as K, tower_fused_cuda as TK
+
+    K.reset_launches()
+    TK.reset_launches()
+
+
+def read_launches(what: str) -> tuple:
+    """(launches, lanes) per kernel since the last reset; raises unless
+    every kernel launched."""
+    from hbbft_tpu_torch.ops import fq_rns_cuda as K, tower_fused_cuda as TK
+
+    fns = {"fq_rns_mul": K.mul, "fq_rns_pow": K.pow_fixed, "tower_op": TK.tower_op,
+           "miller_dbl": TK.miller_dbl, "hard_exp": TK.hard_exp}
+    launches = {k: f.launches for k, f in fns.items()}
+    lanes = {k: f.lanes for k, f in fns.items()}
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            raise AssertionError(f"{name} was not launched on {what}")
+    log(f"launches on {what}: {json.dumps(launches)}; lanes: {json.dumps(lanes)}")
+    return launches, lanes
+
+
+#: name prefixes of the hand-written kernels in a profiler trace
+OUR_KERNELS = ("fq_rns_mul", "fq_rns_pow", "tower_op", "miller_dbl", "hard_exp")
+
+
+@contextmanager
+def profiled(name: str, card: str, stats: dict):
+    """Run the body under torch.profiler (device activity only: recording
+    every host op would slow the eager path far more than it costs to
+    run) and put into ``stats[name]`` the wall time, the device's kernel
+    time and busy share, the hand-written kernels' share, and the kernels
+    that take the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    stats = {}
-
-    @contextmanager
-    def traced(name):
-        if name == "host_setup":
-            yield
-            return
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        yield
         torch.cuda.synchronize()
-        # device activity only: recording every host op would slow the
-        # eager path far more than it costs to run
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            yield
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        kernels = [e for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA]
-        total = sum(e.self_device_time_total for e in kernels) / 1e6
-        ours = sum(e.self_device_time_total for e in kernels
-                   if e.key.startswith("fq_rns_")) / 1e6
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-        stats[name] = {
-            "wall_s": wall, "kernel_s": total, "busy_share": total / wall,
-            "fq_rns_kernel_s": ours, "kernel_launches": sum(e.count for e in kernels),
-            "top": [(e.key[:100], e.count, e.self_device_time_total / 1e6) for e in top],
-        }
-        log(f"profile {name} [{card}]: wall {wall:.3f} s, kernels {total:.3f} s "
-            f"(busy {total / wall:.1%}), fq_rns kernels {ours:.3f} s, "
-            f"{stats[name]['kernel_launches']} kernel launches")
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e6
+    ours = sum(e.self_device_time_total for e in kernels
+               if e.key.startswith(OUR_KERNELS)) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    stats[name] = {
+        "wall_s": wall, "kernel_s": total, "busy_share": total / wall,
+        "our_kernel_s": ours, "kernel_launches": sum(e.count for e in kernels),
+        "top": [(e.key[:100], e.count, e.self_device_time_total / 1e6) for e in top],
+    }
+    log(f"profile {name} [{card}]: wall {wall:.3f} s, kernels {total:.3f} s "
+        f"(busy {total / wall:.1%}), hand-written kernels {ours:.3f} s, "
+        f"{stats[name]['kernel_launches']} kernel launches")
 
-    phase_main(backend, rng, N, (N - 1) // 3, VERIFY_ITEMS, COMBINES, FORGED, wrap=traced)
+
+def profile_main(rng, seed: int, card: str, out_path: str) -> dict:
+    """Phases 3 and 4 once more under torch.profiler: each backend phase of
+    the threshold-decryption path, then one whole N=100 epoch."""
+    from hbbft_tpu_torch.engine.array_engine import ArrayHoneyBadgerNet
+    from hbbft_tpu_torch.ops.backend import TorchBackend
+
+    stats: dict = {}
+
+    def traced(name):
+        return nullcontext() if name == "host_setup" else profiled(name, card, stats)
+
+    phase_main(TorchBackend(), rng, N, (N - 1) // 3, VERIFY_ITEMS, COMBINES, FORGED,
+               wrap=traced)
+    net = ArrayHoneyBadgerNet(range(N), backend=TorchBackend(), seed=seed)
+    contribs = {nid: net.rng.getrandbits(8 * PAYLOAD).to_bytes(PAYLOAD, "big")
+                for nid in net.ids}
+    with profiled("epoch", card, stats):
+        batches = net.run_epoch(contribs)
+    if any(b.contributions != contribs for b in batches.values()):
+        raise AssertionError("the profiled epoch's Batches are wrong")
     with open(out_path, "w") as fh:
         json.dump(stats, fh, indent=1)
     return stats
@@ -370,7 +595,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="run the main path again with each phase under torch.profiler")
+                    help="run phases 3 and 4 again under torch.profiler")
     args = ap.parse_args(argv)
 
     try:
@@ -386,7 +611,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, ROOT)
 
-    from hbbft_tpu_torch.ops import fq_rns_cuda as K
+    from hbbft_tpu_torch.ops import fq_rns_cuda as K, tower_fused_cuda as TK
     from hbbft_tpu_torch.ops.backend import TorchBackend
     from hbbft_tpu_torch.utils import cuda_build
 
@@ -398,38 +623,54 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     try:
         t = time.perf_counter()
-        built = K.build()
+        built = cuda_build.build(["fq_rns", "tower_fused"])  # one nvcc each, in parallel
+        K.build()
+        TK.build()
         secs["build"] = time.perf_counter() - t
         log(f"build: {built} ({secs['build']:.2f} s)")
-        for line in cuda_build.build_log("fq_rns").splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log("  ptxas:", line.strip())
+        for name in ("fq_rns", "tower_fused"):
+            for line in cuda_build.build_log(name).splitlines():
+                if "registers" in line or "spill" in line or "error" in line:
+                    log(f"  ptxas {name}:", line.strip())
 
         t = time.perf_counter()
         errs = phase_kernels(dev, rng, MUL_LANES, POW_LANES)
+        check_tower_kernels(dev, rng, TOWER_WIDTHS, errs)
         secs["kernels"] = time.perf_counter() - t
 
         backend = TorchBackend()
-        K.reset_launches()
+        reset_launches()
         t = time.perf_counter()
-        main_res = phase_main(backend, rng, N, (N - 1) // 3, VERIFY_ITEMS, COMBINES, FORGED)
+        state: dict = {}
+        path_res = phase_main(backend, rng, N, (N - 1) // 3, VERIFY_ITEMS, COMBINES, FORGED,
+                              keep=state)
         torch.cuda.synchronize()
-        secs["main"] = time.perf_counter() - t
-        launches = {"fq_rns_mul": K.mul.launches, "fq_rns_pow": K.pow_fixed.launches}
-        lanes = {"fq_rns_mul": K.mul.lanes, "fq_rns_pow": K.pow_fixed.lanes}
+        secs["path"] = time.perf_counter() - t
+        path_launches, _ = read_launches("the threshold-decryption path")
+
+        t = time.perf_counter()
+        stacked_res = phase_stacked_arm(state, 2 * N * (N - 1))
+        secs["stacked_arm"] = time.perf_counter() - t
+        del state
+
+        epoch_backend = TorchBackend()
+        reset_launches()
+        t = time.perf_counter()
+        epoch_res = phase_epoch(epoch_backend, args.seed, N, EPOCHS, card)
+        torch.cuda.synchronize()
+        secs["epoch_phase"] = time.perf_counter() - t
+        launches, lanes = read_launches("the main path (whole N=100 epochs)")
         widths = {"fq_rns_mul": dict(sorted(K.mul.widths.items())),
                   "fq_rns_pow": dict(sorted(K.pow_fixed.widths.items()))}
-        for name, cnt in launches.items():
-            if cnt <= 0:
-                raise AssertionError(f"{name} was not launched on the main path")
 
         t = time.perf_counter()
         rows = kernel_rows(dev, rng, errs, launches, lanes)
+        rows += tower_kernel_rows(dev, rng, errs, launches, lanes)
         secs["timing"] = time.perf_counter() - t
         prof = None
         if args.profile:
             t = time.perf_counter()
-            prof = profile_main(TorchBackend(), rng, card,
+            prof = profile_main(rng, args.seed + 1, card,
                                 os.path.join(ROOT, "chiprun_out", "chip_smoke_profile.json"))
             secs["profile"] = time.perf_counter() - t
     except Exception:
@@ -439,17 +680,20 @@ def main(argv=None) -> int:
 
     c = backend.counters
     result.update({
-        "n": N, "f": (N - 1) // 3, "main": main_res, "phase_seconds": secs,
-        "device_dispatches": c.device_dispatches, "pairing_checks": c.pairing_checks,
-        "rlc_groups": c.rlc_groups, "kernels": rows, "launch_widths_log2": widths,
+        "n": N, "f": (N - 1) // 3, "path": path_res, "path_launches": path_launches,
+        "stacked_arm": stacked_res, "epoch": epoch_res, "phase_seconds": secs,
+        "path_device_dispatches": c.device_dispatches, "path_pairing_checks": c.pairing_checks,
+        "path_rlc_groups": c.rlc_groups, "kernels": rows, "launch_widths_log2": widths,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(dev), "profile": prof,
     })
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(result, fh, indent=1)
-    log(f"main path N={N}, f={(N - 1) // 3} [{card}]: seconds "
-        f"{json.dumps(main_res['seconds'])}")
+    log(f"threshold-decryption path N={N}, f={(N - 1) // 3} [{card}]: seconds "
+        f"{json.dumps(path_res['seconds'])}")
+    log(f"seconds per N={N} epoch [{card}]: "
+        f"{json.dumps([e['seconds'] for e in epoch_res['epochs']])}")
     log(f"phase seconds [{card}]: {json.dumps(secs)}")
-    log(f"device_dispatches={c.device_dispatches} pairing_checks={c.pairing_checks} "
+    log(f"path device_dispatches={c.device_dispatches} pairing_checks={c.pairing_checks} "
         f"rlc_groups={c.rlc_groups} peak_memory_bytes={result['peak_memory_bytes']} [{card}]")
     log(f"launch widths (key b: [2^(b-1), 2^b) lanes -> launches): {json.dumps(widths)}")
     log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "lanes"} for r in rows]}))

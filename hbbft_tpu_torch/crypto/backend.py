@@ -291,6 +291,42 @@ class CryptoBackend(abc.ABC):
             acc = g.g1_add(acc, el)
         return acc
 
+    # -- erasure/hash plane ----------------------------------------------------
+    #
+    # The RBC plane's RS encode/reconstruct and Merkle build/verify, batched
+    # across proposers exactly like the crypto entry points batch across
+    # shares.  These host codec/hashlib loops (the native C kernels where
+    # they are built) are bit-identical to calling the codec / MerkleTree
+    # directly.
+
+    def rs_encode_batch(self, codec, datas: Sequence[bytes]) -> List[List[bytes]]:
+        """RS-encode many data blocks with one codec: per block, k data
+        shards + m parity shards (``RSCodec.encode`` semantics)."""
+        return self._traced("rs_enc", len(datas), lambda: [codec.encode(d) for d in datas])
+
+    def rs_reconstruct_batch(
+        self, codec, shard_lists: Sequence[Sequence[Optional[bytes]]]
+    ) -> List[List[bytes]]:
+        """Reconstruct many shard vectors (``RSCodec.reconstruct``
+        semantics, including its error raises and the zero-math
+        all-present fast case)."""
+        return self._traced(
+            "rs_dec", len(shard_lists), lambda: [codec.reconstruct(list(s)) for s in shard_lists]
+        )
+
+    def merkle_build_batch(self, shard_lists: Sequence[Sequence[bytes]]) -> List[Any]:
+        """Build one MerkleTree per shard vector."""
+        from hbbft_tpu_torch.crypto.merkle import MerkleTree
+
+        return self._traced(
+            "merkle", len(shard_lists), lambda: [MerkleTree(list(sl)) for sl in shard_lists]
+        )
+
+    def merkle_verify_batch(self, packed, reps: int = 1) -> List[bool]:
+        """Validate a ``PackedProofs`` batch (``reps`` repetitions keep the
+        measured hash workload equal to N independent receivers)."""
+        return self._traced("merkle", len(packed), lambda: packed.validate(reps))
+
     # -- misc ----------------------------------------------------------------
 
     @property

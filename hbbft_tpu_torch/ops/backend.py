@@ -21,9 +21,14 @@ cap, lane-capped pipelined chunking, the staging cache, bucket padding,
 the dispatch kinds and the ``device_dispatches`` accounting.  The
 jitted graphs of the JAX package are plain functions here; on the card
 every field product inside them runs through the kernels of
-``ops/fq_rns_cuda.py``.  The signature/coin paths and the DKG are not
-ported yet: those ``CryptoBackend`` methods run the seam's per-item host
-defaults (crypto/backend.py), never a device path.
+``ops/fq_rns_cuda.py``, and every verification graph rides the fused
+tower kernels (``ops/pairing_chain.py``) unless
+``HBBFT_TPU_NO_FUSED_TOWER=1`` — resolved per dispatch and billed by
+``_bill_chain``.  ``g1_mul_batch``/``g2_mul_batch`` (the batched
+threshold encryption of the array engine) ride the same ladders as
+decryption-share generation.  The signature/coin paths and the DKG are
+not ported yet: those ``CryptoBackend`` methods run the seam's per-item
+host defaults (crypto/backend.py), never a device path.
 
 The RLC coefficients are drawn from the OS CSPRNG (``os.urandom``): a
 seeded generator would make them predictable and void the batch check.
@@ -31,6 +36,7 @@ seeded generator would make them predictable and void the batch check.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from contextlib import contextmanager
@@ -49,7 +55,7 @@ from hbbft_tpu_torch.crypto.keys import (
     PublicKeySet,
     PublicKeyShare,
 )
-from hbbft_tpu_torch.ops import curve, pairing
+from hbbft_tpu_torch.ops import curve, pairing, pairing_chain
 from hbbft_tpu_torch.ops.pipeline import DispatchPipeline, fetch_to_host
 from hbbft_tpu_torch.ops.staging import StagingCache
 from hbbft_tpu_torch.utils.device import resolve
@@ -70,18 +76,27 @@ def _squeeze_point(P):
     return tree_map(lambda c: c[:, 0], P)
 
 
-def _rlc_dec(D, PK, H, W, rbits):
+def _rlc_dec(D, PK, H, W, rbits, fused=None):
     """Grouped dec-share check: e(Σr·D_i, H) == e(Σr·PK_i, W) per group.
     D, PK: (G, k) Jacobian G1; H, W (G,) affine G2; rbits (G, k, RLC_BITS).
     The device graph of the check, a plain function: every Fq product in
-    it is a kernel launch."""
+    it is a kernel launch; ``fused`` routes its pairing as
+    ``pairing.product2_fast`` does."""
     zeros = torch.zeros(rbits.shape[:2], dtype=torch.bool, device=rbits.device)
     comb_d = curve.linear_combine_g1(D, rbits, zeros)
     comb_pk = curve.linear_combine_g1(PK, rbits, zeros)
     d_aff = curve.jac_to_affine_g1(_squeeze_point(comb_d))
     pk_aff = curve.jac_to_affine_g1(_squeeze_point(comb_pk))
     neg_pk = (pk_aff[0], -pk_aff[1], pk_aff[2])
-    return pairing.product2_fast(d_aff, H, neg_pk, W)
+    return pairing.product2_fast(d_aff, H, neg_pk, W, fused=fused)
+
+
+#: (to_device, from_device, ladder, scalar prep) of the batched G1 and G2
+#: independent-ladder dispatches
+_G1_LADDER = (curve.g1_to_device, curve.g1_from_device, curve.g1_scalar_mul_signed,
+              curve.prep_g1_scalars)
+_G2_LADDER = (curve.g2_to_device, curve.g2_from_device, curve.g2_scalar_mul_signed,
+              curve.prep_g2_scalars)
 
 
 class TorchBackend(CryptoBackend):
@@ -230,12 +245,28 @@ class TorchBackend(CryptoBackend):
         for lo in range(0, len(quads), self.pairing_lane_cap):
             self._submit_check_chunk(quads[lo : lo + self.pairing_lane_cap], lo, write)
 
+    def _bill_chain(self, fused: bool, lanes: int) -> None:
+        """Fused-chain accounting for one verification dispatch of
+        ``lanes`` pairing lanes: the analytic per-graph kernel-launch
+        count of whichever composition routes, and on the fused arm the
+        analytic Fq-product count inside the fused kernels."""
+        c = self.counters
+        if fused:
+            c.fused_tower_calls += 1
+            c.fused_chain_field_muls += pairing_chain.analytic_chain_field_muls(lanes)
+            c.fused_chain_pallas_calls += pairing_chain.analytic_pallas_calls(2, fused=True)
+        else:
+            c.stacked_chain_pallas_calls += pairing_chain.analytic_pallas_calls(2, fused=False)
+
     def _submit_check_chunk(self, chunk, base: int, write) -> None:
         n = len(chunk)
         if n == 0:
             return
         self.counters.pairing_checks += n
         self.counters.device_dispatches += 1
+        # per-dispatch routing: flipping HBBFT_TPU_NO_FUSED_TOWER between
+        # calls takes effect at the next dispatch
+        fused = pairing_chain.fused_tower_mode()
         g1 = self.group.g1()
         g2 = self.group.g2()
         pad = (g1, g2, g1, g2)  # trivially true
@@ -255,9 +286,10 @@ class TorchBackend(CryptoBackend):
             for i, ok in enumerate(pairing.is_one_host_batch(f, n)):
                 write(base + i, ok)
 
+        self._bill_chain(fused, b)
         self._dispatch_async(
-            pairing.product2_fast, (P1, Q1, P2, Q2), kind="pairing", items=n,
-            on_result=deliver,
+            functools.partial(pairing.product2_fast, fused=fused), (P1, Q1, P2, Q2),
+            kind="fused_chain" if fused else "pairing", items=n, on_result=deliver,
         )
 
     # -- grouped (random-linear-combination) verification --------------------
@@ -484,8 +516,16 @@ class TorchBackend(CryptoBackend):
             W = pairing.g2_affine_to_device(ws, cache=self._stage, device=self.device)
             return (D_jac, PK_jac, H, W)
 
+        def rlc(D_jac, PK_jac, H, W, rbits):
+            # per-dispatch routing + fused-chain accounting; the dispatch
+            # KIND stays rlc_dec (the fused/stacked split reads off the
+            # counters)
+            fused = pairing_chain.fused_tower_mode()
+            self._bill_chain(fused, rbits.shape[0])
+            return _rlc_dec(D_jac, PK_jac, H, W, rbits, fused=fused)
+
         cont = self._grouped_rlc(
-            rlc_groups, items, build, _rlc_dec, results, direct, kind="rlc_dec",
+            rlc_groups, items, build, rlc, results, direct, kind="rlc_dec",
             deferred=deferred,
         )
         return self._finish_verify(results, cont, deferred)
@@ -611,6 +651,7 @@ class TorchBackend(CryptoBackend):
             [sk.x for sk, _ in items],
             [ct.u for _, ct in items],
             lambda i: items[i][0].decrypt_share_unchecked(items[i][1]),
+            _G1_LADDER,
             kind="decrypt",
         )
         return [
@@ -618,10 +659,32 @@ class TorchBackend(CryptoBackend):
             for el in els
         ]
 
-    def _ladder_batch(self, scalars, points, host_fn, kind=""):
+    def g1_mul_batch(self, scalars: Sequence[int], points: Sequence[Any],
+                     kind: str = "dkg") -> List[Any]:
+        """Batched independent G1 ladders s_i·P_i (the batched threshold
+        encryption's U and shared components).  ``kind`` picks the
+        device-time bucket.  Precondition (as for decrypt_shares_batch):
+        points have order r."""
+        return self._ladder_batch(
+            list(scalars), list(points),
+            lambda i: self.group.g1_mul(scalars[i], points[i]),
+            _G1_LADDER, kind=kind,
+        )
+
+    def g2_mul_batch(self, scalars: Sequence[int], points: Sequence[Any],
+                     kind: str = "dkg") -> List[Any]:
+        """Batched independent G2 ladders (ciphertext W = s·H2(U‖V))."""
+        return self._ladder_batch(
+            list(scalars), list(points),
+            lambda i: self.group.g2_mul(scalars[i], points[i]),
+            _G2_LADDER, kind=kind,
+        )
+
+    def _ladder_batch(self, scalars, points, host_fn, ladder, kind=""):
         """Threshold gate → lane-capped pipelined chunk loop → bucket pad →
         deferred-fetch dispatch per chunk; ``host_fn(i)`` serves batches
-        (and trailing chunks) below the device threshold."""
+        (and trailing chunks) below the device threshold.  ``ladder`` is
+        ``_G1_LADDER`` or ``_G2_LADDER``."""
         n = len(scalars)
         if n < self.device_combine_threshold:
             return [host_fn(i) for i in range(n)]
@@ -633,28 +696,27 @@ class TorchBackend(CryptoBackend):
                 for i in range(lo, hi):
                     out[i] = host_fn(i)
                 continue
-            self._submit_ladder_chunk(scalars[lo:hi], points[lo:hi], lo, out, kind)
+            self._submit_ladder_chunk(scalars[lo:hi], points[lo:hi], lo, out, ladder, kind)
         self._pipe.flush()
         return out
 
-    def _submit_ladder_chunk(self, scalars, points, base, out, kind) -> None:
+    def _submit_ladder_chunk(self, scalars, points, base, out, ladder, kind) -> None:
+        to_device, from_device, fn, prep = ladder
         n = len(scalars)
         with self._host_assembly():
             b = _bucket(n)
-            bits, negs = self._prep_scalars(curve.prep_g1_scalars, list(scalars))
+            bits, negs = self._prep_scalars(prep, list(scalars))
             pts = list(points)
             if b > n:
                 bits = np.concatenate([bits, np.repeat(bits[:1], b - n, axis=0)])
                 negs = np.concatenate([negs, np.repeat(negs[:1], b - n, axis=0)])
                 pts = pts + [pts[0]] * (b - n)
-            P = self._to_device_gather(pts, curve.g1_to_device)
+            P = self._to_device_gather(pts, to_device)
             args = (P, self._tensor(bits), self._tensor(negs))
-        self._count_ladder(bits, n, glv=True)
+        self._count_ladder(bits, n, glv=bits.ndim == 3)
         self.counters.device_dispatches += 1
 
         def deliver(fetched, base=base, n=n):
-            out[base : base + n] = curve.g1_from_device(fetched)[:n]
+            out[base : base + n] = from_device(fetched)[:n]
 
-        self._dispatch_async(
-            curve.g1_scalar_mul_signed, args, kind=kind, items=n, on_result=deliver
-        )
+        self._dispatch_async(fn, args, kind=kind, items=n, on_result=deliver)

@@ -16,12 +16,14 @@ Miller loop:
 
 ``product2_fast`` — FE_fast(ML(P1,Q1)·ML(P2,Q2)) — is the verification
 kernel every batch-verify entry point of the backend runs; the host
-compares each lane against 1 (``is_one_host_batch``).  The fused-tower
-composition of the JAX package is still to be ported.
+compares each lane against 1 (``is_one_host_batch``).  By default it
+routes onto the fused chain (``ops/pairing_chain.py``);
+``HBBFT_TPU_NO_FUSED_TOWER=1`` keeps the stacked composition below.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -178,18 +180,21 @@ def miller_loop(P, Qa):
     return tower.fq12_select(neutral, tower.fq12_broadcast_one(batch_shape, dev), f)
 
 
-def miller_product(pairs):
-    """Π_k ML(P_k, Q_k) per item.  The k loops run as ONE loop over the
-    pairs stacked along the leading axis (k× the lanes per multiply)."""
+def miller_product(pairs, loop=miller_loop, mul=tower.fq12_mul):
+    """Π_k ML(P_k, Q_k) per item, with ``loop`` the Miller loop and ``mul``
+    the fq12 multiply (the fused chain passes its own).  The k loops run
+    as ONE loop over the pairs stacked along the leading axis (k× the
+    lanes per multiply); ``HBBFT_TPU_NO_MERGE=1`` (and pairs without one
+    common batch size) runs them as sequential loops."""
     if len(pairs) == 1:
-        return miller_loop(*pairs[0])
+        return loop(*pairs[0])
     ranks = {p[0][0].ndim for p in pairs}
     batches = {p[0][0].shape[0] for p in pairs}
-    if ranks != {2} or len(batches) != 1:
+    if ranks != {2} or len(batches) != 1 or os.environ.get("HBBFT_TPU_NO_MERGE"):
         f = None
         for P, Qa in pairs:
-            fk = miller_loop(P, Qa)
-            f = fk if f is None else tower.fq12_mul(f, fk)
+            fk = loop(P, Qa)
+            f = fk if f is None else mul(f, fk)
         return f
 
     def cat(*cs):
@@ -197,7 +202,7 @@ def miller_product(pairs):
 
     P = tree_map(cat, *[p for p, _ in pairs])
     Qa = tree_map(cat, *[q for _, q in pairs])
-    f_all = miller_loop(P, Qa)
+    f_all = loop(P, Qa)
     batch = pairs[0][0][0].shape[0]
     parts = [
         tree_map(lambda c, i=i: c[i * batch : (i + 1) * batch], f_all)
@@ -205,7 +210,7 @@ def miller_product(pairs):
     ]
     f = parts[0]
     for fk in parts[1:]:
-        f = tower.fq12_mul(f, fk)
+        f = mul(f, fk)
     return f
 
 
@@ -243,10 +248,19 @@ def final_exponentiation_fast(f):
     return out
 
 
-def product2_fast(P1, Q1, P2, Q2):
+def product2_fast(P1, Q1, P2, Q2, fused=None):
     """THE verification kernel: FE_fast(ML(P1,Q1)·ML(P2,Q2)) as fq12
     residues.  Host-compare each lane against 1 to decide
-    e(P1,Q1)·e(P2,Q2) == 1."""
+    e(P1,Q1)·e(P2,Q2) == 1.
+
+    ``fused`` routes the graph onto the fused tower kernels
+    (ops/pairing_chain.py): ``None`` consults ``HBBFT_TPU_NO_FUSED_TOWER``
+    per call, ``False`` forces the stacked graph, ``True`` the fused one.
+    Both graphs compute identical represented values."""
+    from hbbft_tpu_torch.ops import pairing_chain
+
+    if pairing_chain.resolve_mode(fused):
+        return pairing_chain.product2_fast_fused(P1, Q1, P2, Q2)
     return final_exponentiation_fast(miller_product([(P1, Q1), (P2, Q2)]))
 
 

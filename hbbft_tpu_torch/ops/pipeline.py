@@ -38,6 +38,16 @@ from typing import Any, Callable, List, Optional
 from hbbft_tpu_torch.utils.tree import tree_map
 
 
+def hostpipe_enabled() -> bool:
+    """Kill switch for the HOST half of the epoch: the array engine's
+    vectorized assembly/scatter fast paths and its cross-round
+    deferred-verify overlap.  ``HBBFT_TPU_NO_HOSTPIPE=1`` restores the
+    per-item loops and strictly ordered verification — outputs are
+    bit-identical and ``device_dispatches`` unchanged either way.
+    Re-read per epoch so in-process A/Bs take effect immediately."""
+    return not os.environ.get("HBBFT_TPU_NO_HOSTPIPE")
+
+
 def pipeline_depth() -> int:
     """Max in-flight dispatches.  Re-read per submit so in-process A/Bs
     (``HBBFT_TPU_NO_PIPELINE=1`` vs. default) take effect immediately."""

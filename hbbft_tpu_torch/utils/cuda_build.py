@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds), named
-by a hash of its source and flags so an edited source is rebuilt.  The
+by a hash of its source, the shared headers and the flags, so an edited
+source is rebuilt.  The
 output goes to ``hbbft_tpu_torch/_build/`` (listed in ``.gitignore``).
 Nothing here runs at import: the CPU tests import every module freely.
 """
@@ -45,8 +46,13 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library's path, named by a hash of the source, every shared
+    header of csrc/ and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 

@@ -1,5 +1,7 @@
 """Card-only checks of the port: each CUDA kernel against its plain
-version, and the backend on the card against the backend on the CPU.
+version (the field kernels of csrc/fq_rns.cu and the fused tower kernels
+of csrc/tower_fused.cu), the fused chain against the stacked one, and the
+backend on the card against the backend on the CPU.
 
 They carry the ``cuda`` marker, need an NVIDIA GPU and skip without one
 (the kernels have no CPU mode; their arithmetic is held against the JAX
@@ -20,6 +22,7 @@ import torch
 
 from hbbft_tpu_torch.crypto.field import Q
 from hbbft_tpu_torch.ops import fq_rns as R, fq_rns_cuda as K
+from hbbft_tpu_torch.ops import tower_fused as TF, tower_fused_cuda as TK
 from hbbft_tpu_torch.ops.backend import TorchBackend
 
 pytestmark = pytest.mark.cuda  # registered in pyproject.toml
@@ -30,6 +33,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA: the kernels have no CPU mode")
     K.build()
+    TK.build()
     return torch.device("cuda", 0)
 
 
@@ -105,3 +109,60 @@ def test_backend_on_the_card_matches_the_cpu(dev):
     combs = [({i: shares[3 * c + i] for i in (0, 2)}, cts[c]) for c in range(3)]
     assert card.combine_dec_shares_batch(pks, combs) == [b"card check %d" % i for i in range(3)]
     assert K.mul.launches > 0 and K.pow_fixed.launches > 0
+
+
+def _packed(dev, rng, coeffs, n):
+    rows, _ = _lazy(rng, -(-coeffs * n * 2 // 3))
+    return torch.as_tensor(rows[: coeffs * n].reshape(coeffs, n, R.NLIMBS), device=dev)
+
+
+@pytest.mark.parametrize("kind", TF.OP_KINDS)
+def test_tower_op_kernel_equals_plain(dev, kind):
+    rng = random.Random(13)
+    idx, coeffs = TF.OP_KINDS.index(kind), TF._OP_BODY[kind][1]
+    for n in (1, 300, 1001):  # one lane, one lane per block, a ragged last block
+        a, b = _packed(dev, rng, coeffs, n), _packed(dev, rng, coeffs, n)
+        n0 = TK.tower_op.launches
+        got = TK.tower_op(idx, a, b)
+        torch.cuda.synchronize()
+        assert TK.tower_op.launches == n0 + 1
+        assert torch.equal(got, TF.op_plain(kind, a, b))
+
+
+def test_miller_dbl_kernel_equals_plain(dev):
+    rng = random.Random(14)
+    for n in (1, 300, 1001):
+        f, r, p = (_packed(dev, rng, c, n) for c in (12, 6, 2))
+        got_f, got_r = TK.miller_dbl(f, r, p)
+        want_f, want_r = TF.dbl_plain(f, r, p)
+        assert torch.equal(got_f, want_f) and torch.equal(got_r, want_r)
+
+
+def test_hard_exp_kernel_equals_plain(dev):
+    rng = random.Random(15)
+    for n in (1, 37):
+        m = _packed(dev, rng, 12, n)
+        assert torch.equal(TK.hard_exp(m), TF.hard_plain(m))
+
+
+def test_fused_chain_on_the_card_equals_the_stacked_arm(dev, monkeypatch):
+    from hbbft_tpu_torch.crypto import bls381 as gold
+    from hbbft_tpu_torch.crypto.field import R as SUBR
+    from hbbft_tpu_torch.ops import pairing as P, tower as T
+
+    rng = random.Random(16)
+    quads = []
+    for _ in range(3):
+        a = rng.randrange(1, SUBR)
+        quads.append((gold.ec_neg(gold.FQ, gold.G1_GEN), gold.ec_mul(gold.FQ2, a, gold.G2_GEN),
+                      gold.ec_mul(gold.FQ, a + (len(quads) == 2), gold.G1_GEN), gold.G2_GEN))
+    ops = (P.g1_affine_to_device([q[0] for q in quads]),
+           P.g2_affine_to_device([q[1] for q in quads]),
+           P.g1_affine_to_device([q[2] for q in quads]),
+           P.g2_affine_to_device([q[3] for q in quads]))
+    TK.reset_launches()
+    fused = P.product2_fast(*ops, fused=True)
+    assert (TK.miller_dbl.launches, TK.hard_exp.launches, TK.tower_op.launches) == (63, 1, 1)
+    stacked = P.product2_fast(*ops, fused=False)
+    assert T.fq12_to_ints_batch(fused) == T.fq12_to_ints_batch(stacked)
+    assert P.is_one_host_batch(fused, 3) == [True, True, False]

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from hbbft_tpu_torch.ops import fq_rns, fq_rns_cuda
+from hbbft_tpu_torch.ops import fq_rns, fq_rns_cuda, tower_fused, tower_fused_cuda
 from hbbft_tpu_torch.ops.backend import TorchBackend
 from hbbft_tpu_torch.utils import cuda_build, device
 
@@ -42,8 +42,12 @@ def _kernel_entry_points() -> set:
 
 
 def test_sources_found():
-    assert len(SOURCES) >= 20
-    assert _kernel_entry_points() >= {"fq_rns_mul", "fq_rns_pow"}
+    assert len(SOURCES) >= 30
+    assert _kernel_entry_points() >= {
+        "fq_rns_mul", "fq_rns_pow", "tower_op", "miller_dbl", "hard_exp"
+    }
+    # the native host kernels' loader is one of the guarded modules
+    assert PKG / "native" / "__init__.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
@@ -59,15 +63,15 @@ def test_no_try_around_a_kernel_launch():
     """Every call of a C launcher, and of the wrappers that make them,
     sits outside any ``try`` body in the whole package."""
     launchers = _kernel_entry_points()
-    wrapper_module = PKG / "ops" / "fq_rns_cuda.py"
     wrappers = set()
-    for node in ast.walk(ast.parse(wrapper_module.read_text())):
-        if isinstance(node, ast.FunctionDef):
-            for call in ast.walk(node):
-                if isinstance(call, ast.Call) and isinstance(call.func, ast.Attribute):
-                    if call.func.attr in launchers:
-                        wrappers.add(node.name)
-    assert {"mul", "pow_fixed"} <= wrappers
+    for name in ("fq_rns_cuda.py", "tower_fused_cuda.py"):
+        for node in ast.walk(ast.parse((PKG / "ops" / name).read_text())):
+            if isinstance(node, ast.FunctionDef):
+                for call in ast.walk(node):
+                    if isinstance(call, ast.Call) and isinstance(call.func, ast.Attribute):
+                        if call.func.attr in launchers:
+                            wrappers.add(node.name)
+    assert {"mul", "pow_fixed", "tower_op", "miller_dbl", "hard_exp"} <= wrappers
 
     offenders = []
     for path in SOURCES:
@@ -85,7 +89,8 @@ def test_no_try_around_a_kernel_launch():
                         isinstance(f, ast.Attribute) and isinstance(f.value, ast.Name)
                     ) else ""
                     if name in launchers or (
-                        name in wrappers and owner in ("fq_rns_cuda", "K")
+                        name in wrappers
+                        and owner in ("fq_rns_cuda", "K", "tower_fused_cuda", "TK")
                     ):
                         offenders.append(f"{path.name}:{call.lineno} {owner}.{name}")
     assert not offenders, offenders
@@ -123,6 +128,13 @@ def test_wrappers_never_fall_back_on_other_devices():
         fq_rns_cuda.pow_fixed(a, 5)
     with pytest.raises(ValueError):
         fq_rns_cuda.mul(torch.zeros((2, 80)), torch.zeros((2, 80)))
+    packed = torch.empty((12, 2, fq_rns.NLIMBS), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError):
+        tower_fused.tower_op("fq12_mul", packed, packed)
+    with pytest.raises(ValueError):
+        tower_fused.hard_exp_packed(packed)
+    with pytest.raises(ValueError):
+        tower_fused.miller_double_step_rows(packed, packed[:6], packed[:2])
 
 
 def test_cpu_wrappers_run_the_plain_version_without_building():
@@ -132,13 +144,21 @@ def test_cpu_wrappers_run_the_plain_version_without_building():
     assert np.array_equal(out.numpy(), fq_rns_cuda.mul_plain(rows, rows).numpy())
     assert fq_rns.to_ints(fq_rns_cuda.pow_fixed(rows, 3)) == [27, 125]
     assert (fq_rns_cuda.mul.launches, fq_rns_cuda.pow_fixed.launches) == before
+    packed = torch.as_tensor(np.stack([fq_rns.from_ints([2, 3])] * 2))
+    fused_before = [k.launches for k in tower_fused_cuda.KERNELS]
+    got = tower_fused.tower_op("fq2_mul", packed, packed)
+    assert [fq_rns.to_ints(c) for c in got] == [[0, 0], [8, 18]]  # (x + xu)² = 2x²u
+    assert [k.launches for k in tower_fused_cuda.KERNELS] == fused_before
     assert not cuda_build._LIBS  # importing and CPU use never build a kernel
 
 
 def test_kernel_constants_match_the_library_layout():
-    """The packed constant buffer has the length csrc/fq_rns.cu's offset
-    table ends at (the library re-checks it at load on the card)."""
-    src = (PKG / "csrc" / "fq_rns.cu").read_text()
+    """The packed constant buffer has the length the offset table of
+    csrc/fq_rns_core.cuh (shared by both CUDA sources) ends at (each
+    library re-checks it at load on the card)."""
+    src = (PKG / "csrc" / "fq_rns_core.cuh").read_text()
+    for cu in ("fq_rns.cu", "tower_fused.cu"):
+        assert '#include "fq_rns_core.cuh"' in (PKG / "csrc" / cu).read_text()
     consts = {}
     for name, expr in re.findall(r"#define (\w+) (.+?)(?:\s*//.*)?$", src, re.M):
         consts[name] = expr

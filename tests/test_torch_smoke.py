@@ -90,3 +90,21 @@ def test_main_phase_at_a_tiny_size(smoke, capsys):
     # CPU tensors run the plain versions: no kernel launches are counted
     assert fq_rns_cuda.mul.launches == 0 and fq_rns_cuda.pow_fixed.launches == 0
     json.dumps(res)  # the phase result is what the script prints as JSON
+
+
+def test_stacked_arm_and_epoch_phases_at_a_tiny_size(smoke, capsys):
+    """Phase 3's stacked-arm pass and phase 4's whole epochs, on the CPU
+    backend at N=4 (the card runs the same code at N=100)."""
+    state: dict = {}
+    smoke.phase_main(TorchBackend(device="cpu"), random.Random(1), 4, 1, 12, 4, 0, keep=state)
+    res = smoke.phase_stacked_arm(state, 12, device="cpu")
+    assert {k: res[k] for k in ("ciphertexts", "dec_items")} == {"ciphertexts": 5, "dec_items": 12}
+    assert res["dec_seconds"]["fused"] > 0 and res["dec_seconds"]["stacked"] > 0
+    backend = TorchBackend(device="cpu")
+    ep = smoke.phase_epoch(backend, 0, 4, 1, "cpu")
+    out = capsys.readouterr().out
+    assert "equal the fused arm" in out and "same Batch of 4 contributions" in out
+    (only,) = ep["epochs"]
+    assert only["report"]["dec_shares_verified"] == 4 * 4 * 3 and only["seconds"] > 0
+    assert ep["device_seconds"]["fused_chain"] > 0 and ep["device_dispatches"] > 0
+    json.dumps(ep)
