@@ -16,7 +16,11 @@ Phases (any failure exits non-zero and prints no result line):
              field samples against Python-int arithmetic mod Q; the FMA
              probe within its derived relative tolerance
              (``probe_cuda.rel_tolerance``: the kernel fuses each step,
-             the plain version rounds twice).
+             the plain version rounds twice).  ``fq_rns_mul`` (timing
+             phase) at MUL_WIDTHS and the epoch's mean width, reduced or
+             not, with a one-row operand on either side or none;
+             ``miller_dbl`` at DBL_WIDTHS, the epoch's mean width and one
+             width per lanes-per-block class of this card.
 3. path    — the threshold-decryption crypto path of one N=100, f=33
              HoneyBadger epoch through ``TorchBackend()`` (the first slice's
              path, now on the fused chain): ciphertext checks (one
@@ -47,14 +51,17 @@ Phases (any failure exits non-zero and prints no result line):
 5. a ``{"kernels": [...]}`` line, one row per kernel: launches on its own
    path (epoch, limb arm or bench), largest difference from the plain
    version (phase 2's widths and the path's), median kernel time at the
-   path's mean launch width, the plain version's time and the bound (the
-   least time the card could take: see ``bound`` and ``roofline``).
+   path's mean launch width (``time_ms``: one call between two CUDA
+   events), the plain version's time and the bound (the least time
+   the card could take: see ``bound`` and ``roofline``).  Before it: the
+   compiler's ``-Xptxas -v`` lines, each kernel's occupancy and the
+   epoch's ``fq_rns_mul`` launch widths.
 6. per-phase seconds, device_dispatches, and the card's name and power
    limit; the last line is ``{"ok": true, "device": {...}}``.
 
 ``--profile`` runs phase 3 (each backend phase) and one epoch of phase 4 a
-second time under torch.profiler (kernel time by name, device busy
-share).  The whole result
+second time under torch.profiler (kernel time by name, the hand-written
+kernels' device seconds each, device busy share).  The whole result
 is also written to chiprun_out/chip_smoke.json.
 """
 
@@ -110,6 +117,15 @@ PAYLOAD = 128  # bytes per contribution (run_epochs' default)
 #: widths the fused tower kernels are checked at besides the main path's
 #: mean: one lane, and 1001 lanes (three lanes per block, the last partial)
 TOWER_WIDTHS = (1, 1001)
+#: widths fq_rns_mul is checked at besides the main path's mean: one lane,
+#: around two 64-lane blocks (4 warps x 16), a ragged persistent grid and
+#: full blocks;
+#: each with reduced False and True and a one-row operand on either side
+MUL_WIDTHS = (1, 127, 128, 129, 1001, 65536)
+#: widths miller_dbl is checked at besides the main path's mean and one
+#: width per lanes-per-block class: one lane, a ragged last block (LB = 2),
+#: a grid that fills the card exactly (LB = 4)
+DBL_WIDTHS = (1, 1001, 2112)
 #: widths the limb kernels and the RNS chain are checked at besides their
 #: path's mean: one lane, a partial 128-lane block, full blocks
 LIMB_WIDTHS = (1, 1001, 4096)
@@ -465,6 +481,27 @@ def _dec(v):
     return None if v is None else int(v, 16) if isinstance(v, str) else tuple(_dec(x) for x in v)
 
 
+def check_dbl_widths(dev, rng, n_mean: int, errs: dict) -> None:
+    """miller_dbl against its plain version at DBL_WIDTHS, the main path's
+    mean width and, for each lanes-per-block class the sizing can pick on
+    this card, its widest launch less one lane (a ragged last block)."""
+    from hbbft_tpu_torch.ops import tower_fused as TF, tower_fused_cuda as TK
+
+    resident = TK.dbl_resident_blocks(dev)
+    classes, lb = [], 1
+    while lb <= TK.MAX_LB:
+        classes.append(max(1, resident * lb - (lb > 1)))
+        lb *= 2
+    for n in (*DBL_WIDTHS, n_mean, *classes):
+        f, r, p = (tower_inputs(dev, rng, c, n) for c in (12, 6, 2))
+        got_f, got_r = TK.miller_dbl(f, r, p)
+        want_f, want_r = TF.dbl_plain(f, r, p)
+        lb = TK.dbl_lanes_per_block(n, resident)
+        errs["miller_dbl"] = max(errs.get("miller_dbl", 0.0),
+                                 same(f"miller_dbl f (LB={lb})", got_f, want_f),
+                                 same(f"miller_dbl R (LB={lb})", got_r, want_r))
+
+
 def limb_arm_payload(state, n_items: int) -> dict:
     """Phase 3's keys, ciphertexts, shares and first ``n_items`` verify
     items as JSON.  Points travel as affine coordinates (the child trusts
@@ -667,12 +704,14 @@ def phase_epoch(backend, seed: int, n: int, epochs: int, card: str) -> dict:
 
 
 def same(name: str, got, want) -> float:
-    """max |kernel - plain|; raises unless the two are bit-equal."""
+    """max |kernel - plain|; raises unless the two are equal value for value
+    (whether every bit agrees too, the signs of zeros included, is logged)."""
     import torch
 
     torch.cuda.synchronize()
     e = float((got - want).abs().max())
-    log(f"{name}: {got.shape[-2]} lanes, max |kernel - plain| = {e}")
+    bits = torch.equal(got.contiguous().view(torch.int32), want.contiguous().view(torch.int32))
+    log(f"{name}: {got.shape[-2]} lanes, max |kernel - plain| = {e}, same bits: {bits}")
     if not torch.equal(got, want):
         raise AssertionError(f"{name} differs from its plain version")
     return e
@@ -692,14 +731,17 @@ def kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list:
     e = Q - 2
     n_mul = max(1, lanes["fq_rns_mul"] // max(1, launches["fq_rns_mul"]))
     n_pow = max(1, lanes["fq_rns_pow"] // max(1, launches["fq_rns_pow"]))
-    for n in (1, n_mul):
+    for n in (*MUL_WIDTHS, n_mul):
         a = torch.as_tensor(lazy_rows(rng, n, R)[0], device=dev)
         b = torch.flip(a, dims=(0,)).contiguous()
         for reduced in (False, True):
             x, y = (K.mul_plain(a, a), K.mul_plain(b, b)) if reduced else (a, b)
-            errs["fq_rns_mul"] = max(errs["fq_rns_mul"], same(
-                f"fq_rns_mul reduced={reduced}", K.mul(x, y, reduced=reduced),
-                K.mul_plain(x, y, reduced=reduced)))
+            # a one-row operand on either side is read at lane stride 0
+            for tag, u, v in (("", x, y), (" (79,) x rows", x[n // 2], y),
+                              (" rows x (1, 79)", x, y[n // 3 : n // 3 + 1])):
+                errs["fq_rns_mul"] = max(errs["fq_rns_mul"], same(
+                    f"fq_rns_mul reduced={reduced}{tag}", K.mul(u, v, reduced=reduced),
+                    K.mul_plain(u, v, reduced=reduced)))
     for n in (1, n_pow):
         x = torch.as_tensor(lazy_rows(rng, n, R)[0], device=dev)
         errs["fq_rns_pow"] = max(errs["fq_rns_pow"], same(
@@ -766,6 +808,7 @@ def tower_kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list
         [TK.tower_op(k, a, b)], [TF.op_plain("fq12_mul", a, b)])
 
     n = width["miller_dbl"]
+    check_dbl_widths(dev, rng, n, errs)
     f, r, p = (tower_inputs(dev, rng, c, n) for c in (12, 6, 2))
     row("miller_dbl", 515, n, PC.DBL_FIELD_MULS, 38, lambda: TK.miller_dbl(f, r, p),
         lambda: TF.dbl_plain(f, r, p), TK.miller_dbl(f, r, p), TF.dbl_plain(f, r, p))
@@ -924,14 +967,17 @@ def profiled(name: str, card: str, stats: dict):
     ours = sum(e.self_device_time_total for e in kernels
                if e.key.startswith(OUR_KERNELS)) / 1e6
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    by_kernel = {k: sum(e.self_device_time_total for e in kernels if e.key.startswith(k)) / 1e6
+                 for k in OUR_KERNELS}
     stats[name] = {
         "wall_s": wall, "kernel_s": total, "busy_share": total / wall,
-        "our_kernel_s": ours, "kernel_launches": sum(e.count for e in kernels),
+        "our_kernel_s": ours, "our_kernel_s_by_name": by_kernel,
+        "kernel_launches": sum(e.count for e in kernels),
         "top": [(e.key[:100], e.count, e.self_device_time_total / 1e6) for e in top],
     }
     log(f"profile {name} [{card}]: wall {wall:.3f} s, kernels {total:.3f} s "
-        f"(busy {total / wall:.1%}), hand-written kernels {ours:.3f} s, "
-        f"{stats[name]['kernel_launches']} kernel launches")
+        f"(busy {total / wall:.1%}), hand-written kernels {ours:.3f} s "
+        f"({json.dumps(by_kernel)}), {stats[name]['kernel_launches']} kernel launches")
 
 
 def profile_main(rng, seed: int, card: str, out_path: str) -> dict:
@@ -1012,6 +1058,9 @@ def main(argv=None) -> int:
             for line in cuda_build.build_log(name).splitlines():
                 if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
                     log(f"  ptxas {name}:", line.strip())
+        log(f"occupancy [{card}]: fq_rns_mul {K.mul_blocks_per_sm(dev)} blocks of "
+            f"128 threads per SM; miller_dbl {TK.dbl_resident_blocks(dev)} "
+            f"blocks of 128 threads resident on the card")
 
         t = time.perf_counter()
         errs = phase_kernels(dev, rng, MUL_LANES, POW_LANES)
@@ -1049,6 +1098,10 @@ def main(argv=None) -> int:
         launches, lanes = read_launches("the main path (whole N=100 epochs)", EPOCH_KERNELS)
         widths = {"fq_rns_mul": dict(sorted(K.mul.widths.items())),
                   "fq_rns_pow": dict(sorted(K.pow_fixed.widths.items()))}
+        log(f"epoch fq_rns_mul launch widths (key b: [2^(b-1), 2^b) lanes -> launches): "
+            f"{json.dumps(widths['fq_rns_mul'])}; one-row operands at lane stride 0 in "
+            f"{K.mul.broadcast_launches} of {K.mul.launches} launches")
+        result["fq_rns_mul_broadcast_launches"] = K.mul.broadcast_launches
 
         reset_launches()
         t = time.perf_counter()

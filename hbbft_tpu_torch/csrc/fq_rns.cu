@@ -10,30 +10,62 @@
 // PyTorch version in hbbft_tpu_torch/ops/fq_rns_cuda.py).
 //
 // Data layout.  Operands are the port's public (n, 79) float32 residue rows,
-// [B1 (39) | B2 (39) | m_r], every value an exact integer below 2^24.  A block
-// owns TPB consecutive lanes (rows of the operand).  It copies its TPB x 79
-// slab into shared memory transposed to [residue][lane] (coalesced global
-// reads, stride TPB+1 against bank conflicts), and each thread then runs the
-// whole Montgomery pipeline for ONE lane down its own column.  No thread ever
-// touches another thread's column, so the pipeline needs no barriers and the
-// power kernel chains its ~760 products without leaving shared memory.
+// [B1 (39) | B2 (39) | m_r], every value an exact integer below 2^24.
 //
-// What bounds it on the H100.  Per product a lane does 39x40 (first
-// extension, 2 sums) + 39x40 (second extension, 4 sums) = 9,360 float32
-// multiply-adds plus ~400 ops of reductions, against 3 x 316 bytes of
-// device memory traffic (two operands in, one out): ~30 operations per byte,
-// so the multiply kernel is bound by the float32 pipe (67 TFLOP/s) rather
-// than by memory (3.35 TB/s; the balance point is ~20 op/B).  The power
-// kernel reads 316 B and writes 316 B per lane for ~570 products and is
-// entirely compute bound.  This first design spends one shared-memory
-// broadcast load per 2 (first extension) or 4 (second extension)
-// multiply-adds on the constant matrices, so it is issue bound below the
-// float32 peak; a later version moves the extensions onto the tensor cores
-// (the 6-bit/5-bit planes are exact in bf16, as the TPU kernel uses them).
+// fq_rns_mul.  What bounds it on the H100: one product moves 3 x 316 bytes
+// (two rows in, one out) and needs 25,600 tensor-core flops for its two
+// base extensions plus ~4.9k float32 operations of reductions
+// (chip_smoke.MUL_EW_OPS), so at the card's peak rates it is bound by its
+// bytes (~0.28 ns a lane at 3.35 TB/s against ~0.10 ns of operations).
+// The first design (one lane per thread, a transposed 79 x 129 tile per
+// operand, 9,360 float32 FMAs a lane) ran at ~10x that bound, on 8 warps
+// per SM.  This one:
+//  * each warp computes 16 lanes at once with the warp-wide tensor-core body
+//    `mul_warp` (csrc/fq_rns_core.cuh): the extensions are int8 mma.sync
+//    products, exact by construction, and the floors and int <-> float
+//    conversions of the reductions run as float32 adds, not on the
+//    conversion unit;
+//  * operand rows are read row by row across the warp (lane = residue:
+//    coalesced 128-byte segments), eight rows' loads in flight per lane,
+//    and the pointwise product a*b is taken while staging, so one 5 KB
+//    tile per warp holds the whole pipeline in place (no transposed tile,
+//    no second operand tile).  Why 4-byte loads and not a 16-byte or TMA
+//    copy of the block's contiguous slab: a copy into shared memory needs
+//    a second tile for b (fewer warps per SM), and 16-byte loads into
+//    registers put a lane's elements on changing residues, so every
+//    element fetches its constants from shared memory instead of holding
+//    them in registers.  Measured on the H100 (PERF.md): a variant that
+//    staged each whole group of 16 rows with 16-byte loads (ten a lane
+//    per operand) ran 4-7% slower (0.129 against 0.121-0.123 ms at
+//    191,251 lanes; ptxas: 24 bytes of spills) -- the pass waits on its
+//    latency, not on the count of load instructions;
+//  * a one-row operand (a (79,) or (1, 79) row against n rows) is read
+//    with lane stride 0, straight from L2, instead of being expanded;
+//  * a block is 4 warps with 12.3 KB of constants (the float vectors and
+//    the int8 planes in fragment order) plus 4 x 5,056 B of tiles:
+//    32,528 B, so 6 blocks (24 warps) fit on an SM within its 227 KB, and
+//    __launch_bounds__(128, 6) holds the registers to 85 (ptxas: 80, no
+//    spills);
+//  * the grid is persistent (at most the blocks that fit at once, from the
+//    occupancy query), each warp walking lane groups with a grid stride,
+//    so the constants are copied once per resident block rather than once
+//    per 64 lanes; the 24 warps of an SM overlap one another's loads and
+//    tensor-core work, so there is no explicit copy pipeline.
+// What still bounds it is the latency of one warp's pass (staging, the two
+// extensions' epilogues, the store), which the SM's warps do not fully
+// hide: ~2.2x the byte bound at the epoch's mean width (PERF.md).  That is
+// why a pass takes 16 lanes and not 32: with half the tile, 24 warps share
+// an SM instead of 16, and the card measured 12% faster.
 //
-// Exactness: see csrc/fq_rns_core.cuh, which holds the Montgomery body
-// (`mul_core`) and the constant layout this file shares with
-// csrc/tower_fused.cu.  Compile without --use_fast_math.
+// fq_rns_pow and fq_rns_chain keep the first design: a block owns TPB
+// consecutive lanes, copies its TPB x 79 slab into shared memory transposed
+// to [residue][lane] (stride TPB+1 against bank conflicts), and each thread
+// runs `mul_core` for ONE lane down its own column, chaining its products
+// without leaving shared memory.  Per product a lane does 9,360 float32
+// multiply-adds (both extensions on the float32 pipe) plus ~400 ops of
+// reductions, so they are bound by operations.
+//
+// Exactness: see csrc/fq_rns_core.cuh.  Compile without --use_fast_math.
 
 #include "fq_rns_core.cuh"
 
@@ -59,24 +91,29 @@ __device__ __forceinline__ void store_tile(float* g, const float* T, int cnt) {
   }
 }
 
-__global__ void __launch_bounds__(TPB)
-fq_rns_mul_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  float* __restrict__ out, int n, int reduced,
-                  const float* __restrict__ kc) {
-  extern __shared__ float smem[];
-  float* K = smem;
-  float* A = K + N_CONSTS;
-  float* B = A + NL * LD;
-  const long base = (long)blockIdx.x * TPB;
-  const int cnt = (int)min((long)TPB, (long)n - base);
-  load_consts(K, kc);
-  load_tile(A, a + base * NL, cnt);
-  load_tile(B, b + base * NL, cnt);
+#define MUL_WARPS 4
+#define MUL_TPB (32 * MUL_WARPS)
+#define MUL_SMEM (TC_SMEM_BYTES + MUL_WARPS * WARP_TILE * 4)
+
+// Lane l reads row l*sa of a and l*sb of b (sa, sb: 79, or 0 for a one-row
+// operand) and writes row l of out.
+__global__ void __launch_bounds__(MUL_TPB, 6)
+fq_rns_mul_kernel(const float* __restrict__ a, int sa, const float* __restrict__ b, int sb,
+                  float* __restrict__ out, int n, int reduced, const float* __restrict__ kc,
+                  const int* __restrict__ kt) {
+  extern __shared__ __align__(16) float smem[];
+  load_tc_consts(smem, kc, kt);
   __syncthreads();
-  const int t = threadIdx.x;
-  mul_core(A + t, LD, B + t, LD, A + t, LD, reduced != 0, K);
-  __syncthreads();
-  store_tile(out + base * NL, A, cnt);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* T = smem + NV + TC_WORDS + warp * WARP_TILE;
+  const long groups = ((long)n + WARP_M - 1) / WARP_M;
+  for (long gi = (long)blockIdx.x * MUL_WARPS + warp; gi < groups;
+       gi += (long)gridDim.x * MUL_WARPS) {
+    const long l = gi * WARP_M + min(lane, WARP_M - 1);
+    const bool valid = lane < WARP_M && l < n;
+    const long lr = valid ? l : (long)n - 1;  // padding lanes re-read the last row
+    mul_warp(T, smem, a + lr * sa, b + lr * sb, out + lr * NL, valid, reduced != 0, lane);
+  }
 }
 
 __global__ void __launch_bounds__(TPB)
@@ -136,29 +173,43 @@ fq_rns_chain_kernel(const float* __restrict__ a, const float* __restrict__ b,
   store_tile(out + base * NL, A, cnt);
 }
 
+// Launch set-up, once per process and device (launch_setup).
+static LaunchSetup g_mul[MAX_DEVICES], g_pow[MAX_DEVICES], g_chain[MAX_DEVICES];
+
+static const LaunchSetup& mul_setup() {
+  return launch_setup(g_mul, fq_rns_mul_kernel, MUL_TPB, MUL_SMEM);
+}
+
 extern "C" {
 
 int fq_rns_const_floats(void) { return N_CONSTS; }
+int fq_rns_tc_bytes(void) { return TC_BYTES; }
+
+// Blocks of fq_rns_mul_kernel resident on one SM (the occupancy the
+// launch gets), or a negative CUDA error code.
+int fq_rns_mul_blocks_per_sm(void) {
+  const LaunchSetup& s = mul_setup();
+  return s.rc ? -s.rc : s.per_sm;
+}
 
 // Each launcher returns cudaGetLastError() after its launch (0 = launched).
-int fq_rns_mul(const float* a, const float* b, float* out, int n, int reduced,
-               const float* kc, void* stream) {
+int fq_rns_mul(const float* a, int sa, const float* b, int sb, float* out, int n, int reduced,
+               const float* kc, const int* kt, void* stream) {
   if (n <= 0) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      fq_rns_mul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  unsigned grid = (unsigned)((n + TPB - 1) / TPB);
-  fq_rns_mul_kernel<<<grid, TPB, SMEM_BYTES, (cudaStream_t)stream>>>(
-      a, b, out, n, reduced, kc);
+  const LaunchSetup& s = mul_setup();
+  if (s.rc) return s.rc;
+  const long want = ((long)n + MUL_WARPS * WARP_M - 1) / (MUL_WARPS * WARP_M);
+  const unsigned grid = (unsigned)(want < s.blocks ? want : s.blocks);
+  fq_rns_mul_kernel<<<grid, MUL_TPB, MUL_SMEM, (cudaStream_t)stream>>>(a, sa, b, sb, out, n,
+                                                                       reduced, kc, kt);
   return (int)cudaGetLastError();
 }
 
 int fq_rns_pow(const float* x, const int* bits, int nbits, float* out, int n,
                const float* kc, void* stream) {
   if (n <= 0) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      fq_rns_pow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
+  const int rc = launch_setup(g_pow, fq_rns_pow_kernel, TPB, SMEM_BYTES).rc;
+  if (rc) return rc;
   unsigned grid = (unsigned)((n + TPB - 1) / TPB);
   fq_rns_pow_kernel<<<grid, TPB, SMEM_BYTES, (cudaStream_t)stream>>>(
       x, bits, nbits, out, n, kc);
@@ -168,9 +219,8 @@ int fq_rns_pow(const float* x, const int* bits, int nbits, float* out, int n,
 int fq_rns_chain(const float* a, const float* b, float* out, int n, int nmul,
                  const float* kc, void* stream) {
   if (n <= 0) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      fq_rns_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
+  const int rc = launch_setup(g_chain, fq_rns_chain_kernel, TPB, SMEM_BYTES).rc;
+  if (rc) return rc;
   unsigned grid = (unsigned)((n + TPB - 1) / TPB);
   fq_rns_chain_kernel<<<grid, TPB, SMEM_BYTES, (cudaStream_t)stream>>>(
       a, b, out, n, nmul, kc);

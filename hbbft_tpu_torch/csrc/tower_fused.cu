@@ -32,14 +32,38 @@
 //
 // What bounds it on the H100.  Per lane the double step runs 118 products and
 // the hard part 11,424 (five x-chains of 63 cyclotomic squares of 30
-// products, 25 set-bit multiplies of 54, and the glue): ~9.8k float32
-// multiply-adds each, against 12,008 (double step: 20 rows in, 18 out) and
-// 7,584 (hard part: 12 rows in, 12 out) bytes of device memory per lane.  Both are bound by operations, not
-// bytes.  This first design leaves threads idle in the narrow rounds (7
-// products of the third doubling round, 12 of the renormalization) and
-// reads operands from device memory instead of a transposed shared tile;
-// a later version packs lanes into full warps and moves the extensions onto
-// the tensor cores.
+// products, 25 set-bit multiplies of 54, and the glue), against 12,008
+// (double step: 20 rows in, 18 out) and 7,584 (hard part: 12 rows in, 12
+// out) bytes of device memory per lane.  Both are bound by operations, not
+// bytes; at the verification path's narrow widths (~1.6k lanes for the
+// double step) what they meet first is latency: a few serial rounds of
+// products with barriers between them.
+//
+// miller_dbl runs its products on the warp-wide tensor-core body
+// (`mul_warp`, csrc/fq_rns_core.cuh; pass `mul_pass_warp` below).  A round's
+// np*nl products are numbered task = p*nl + l and dealt to the block's warps
+// 16 at a time (the last group padded with dummy tasks that store
+// nothing); a warp reads each task's rows across its lanes (coalesced),
+// runs both extensions as int8 mma.sync products and writes the rows back.
+// The round's rows stay in the device-memory scratch: a lane's 162 staging
+// rows are 51 KB, so a block's would not fit in shared memory, and they
+// are written and read back by the same block within microseconds, so
+// they live in L2.  Shared memory holds the 12.3 KB of constants and the
+// four warps' 5 KB tiles (32,528 B); registers allow four blocks (16
+// warps) per SM.
+// Sizing (ops/tower_fused_cuda.py dbl_lanes_per_block): the lanes per block
+// LB is the smallest power of two (at most 8) for which the grid fits on
+// the card at once (blocks per SM from the occupancy query x SMs: 4 x 132
+// = 528 on the H100).  At the path's ~1,593 lanes that is LB = 4 and 399
+// blocks (3 per SM, 12 warps); the rounds' 192, 72, 28 and 180 products
+// are 12, 5, 2 and 12 groups of 16, so a doubling is 3 + 2 + 1 + 3 serial
+// warp passes of 16 products instead of 3 + 1 + 1 + 3 serial one-thread
+// products (ptxas: 126 registers, no spills).  What bounds it now is
+// those passes' latency (PERF.md).
+//
+// tower_op and hard_exp keep the first design: thread k of the block runs
+// the whole per-thread body `mul_core` for product k/nl of lane k%nl, on
+// rows in the scratch read with stride 1 (`mul_pass`).
 //
 // Layout of the operands: the port's (C, n, 79) stacked coefficient rows in
 // the canonical leaf order (fq12: coefficient 6s + 2t + c for fq6-half s,
@@ -289,8 +313,9 @@ struct Blk {
   float* S;        // this block's scratch: slot s, lane l, residue r at S[s*ss + l*79 + r]
   long ss;         // slot stride = LB*79
   int nl;          // valid lanes of this block
-  const float* K;  // field constants (shared memory)
+  const float* K;  // field constants (shared memory): mul_core's, or mul_warp's
   const float* tc; // tower constants (NTC, 79)
+  float* T;        // this warp's mul_warp tile (shared memory), or null
   __device__ __forceinline__ El slot(int s) const { return {S + s * ss, ss}; }
   __device__ __forceinline__ Pairs pairs(int k) const {
     return Pairs{S + S_OPA * ss, S + S_OPB * ss, ss, k};
@@ -309,6 +334,25 @@ __device__ __noinline__ void mul_pass(const Blk& b, int np) {
     const int p = task / b.nl;
     const int off = p * b.ss + (task - p * b.nl) * NL;
     mul_core(A + off, 1, B + off, 1, O + off, 1, false, b.K);
+  }
+  __syncthreads();
+}
+
+// The same on the warp-wide tensor-core body: tasks task = p*nl + l dealt
+// to the warps WARP_M at a time; the lanes past the last task re-read task
+// 0's rows and store nothing.  The loop bound is uniform across a warp.
+__device__ __noinline__ void mul_pass_warp(const Blk& b, int np) {
+  __syncthreads();
+  const float* A = b.S + S_OPA * b.ss;
+  const float* B = b.S + S_OPB * b.ss;
+  float* O = b.S + S_OUT * b.ss;
+  const int ntask = np * b.nl, lane = threadIdx.x & 31;
+  for (int g0 = (threadIdx.x >> 5) * WARP_M; g0 < ntask; g0 += (blockDim.x >> 5) * WARP_M) {
+    const bool valid = lane < WARP_M && g0 + lane < ntask;
+    const int task = valid ? g0 + lane : 0;
+    const int p = task / b.nl;
+    const long off = p * b.ss + (long)(task - p * b.nl) * NL;
+    mul_warp(b.T, b.K, A + off, B + off, O + off, valid, false, lane);
   }
   __syncthreads();
 }
@@ -449,15 +493,23 @@ tower_op_kernel(int kind, const float* a, const float* bb, float* out, int n, in
 // Kernel 2: one Miller doubling, f <- f^2 * l_R(P), R <- 2R
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(TPB)
+#define DBL_SMEM (TC_SMEM_BYTES + (TPB / 32) * WARP_TILE * 4)
+
+__global__ void __launch_bounds__(TPB, 4)
 miller_dbl_kernel(const float* f_in, const float* r_in, const float* p_in, float* f_out,
                   float* r_out, int n, int lb, float* scratch,
-                  const float* __restrict__ kc) {
-  __shared__ __align__(16) float K[N_CONSTS];  // float2 views of E1/E2
+                  const float* __restrict__ kc, const int* __restrict__ kt) {
+  extern __shared__ __align__(16) float smem[];  // mul_warp constants, then the tiles
   Blk b;
-  long lane0;
-  block_setup(K, kc, scratch, n, lb, DBL_SLOTS, b, lane0);
+  const long lane0 = (long)blockIdx.x * lb;
+  load_tc_consts(smem, kc, kt);
+  b.ss = (long)lb * NL;
+  b.S = scratch + (long)blockIdx.x * DBL_SLOTS * b.ss;
+  b.nl = (int)min((long)lb, (long)n - lane0);
+  b.K = smem;
   b.tc = nullptr;
+  b.T = smem + NV + TC_WORDS + (threadIdx.x >> 5) * WARP_TILE;
+  __syncthreads();
   const long cs = (long)n * NL;
   const El f{const_cast<float*>(f_in) + lane0 * NL, cs};
   const El R{const_cast<float*>(r_in) + lane0 * NL, cs};
@@ -476,7 +528,7 @@ miller_dbl_kernel(const float* f_in, const float* r_in, const float* p_in, float
     pr.mul2(Z, Z);
     pr.mul2(Y, Z);
   }
-  mul_pass(b, 48);
+  mul_pass_warp(b, 48);
 
   // round 2: X^3, X^2 Z^2, Y Z^3, Y^4, (X + Y^2)^2, E^2 (E = 3 X^2)
   FOR_K(b) {
@@ -499,7 +551,7 @@ miller_dbl_kernel(const float* f_in, const float* r_in, const float* p_in, float
     pr.mul2(XpYY, XpYY);
     pr.mul2(E, E);
   }
-  mul_pass(b, 18);
+  mul_pass_warp(b, 18);
 
   // round 3: E*(D - X3) and the four line-coefficient scalings
   FOR_K(b) {
@@ -529,7 +581,7 @@ miller_dbl_kernel(const float* f_in, const float* r_in, const float* p_in, float
     pr.fq(v.c0, xP);
     pr.fq(v.c1, xP);
   }
-  mul_pass(b, 7);
+  mul_pass_warp(b, 7);
 
   // round 4: the 15 fq2 products of f^2 times the sparse line
   FOR_K(b) {
@@ -542,7 +594,7 @@ miller_dbl_kernel(const float* f_in, const float* r_in, const float* p_in, float
     Pairs pr = b.pairs(k);
     pr.mul_line(T.at_slot(D_F2).f12(k), c0a0, T.f2(D_C1A1, k), c1a2);
   }
-  mul_pass(b, 45);
+  mul_pass_warp(b, 45);
   FOR_K(b) {
     Prods q = b.prods(k);
     fo.put12(k, q.mul_line());
@@ -660,6 +712,7 @@ hard_exp_kernel(const int* __restrict__ bits, int nbits, const float* m_in, floa
 extern "C" {
 
 int tower_fused_const_floats(void) { return N_CONSTS; }
+int tower_fused_tc_bytes(void) { return TC_BYTES; }
 int tower_fused_op_slots(void) { return OP_SLOTS; }
 int tower_fused_dbl_slots(void) { return DBL_SLOTS; }
 int tower_fused_hard_slots(void) { return HARD_SLOTS; }
@@ -673,13 +726,28 @@ int tower_op(int kind, const float* a, const float* b, float* out, int n, int lb
   return (int)cudaGetLastError();
 }
 
+// miller_dbl's launch set-up, once per process and device (launch_setup).
+static LaunchSetup g_dbl[MAX_DEVICES];
+
+static const LaunchSetup& dbl_setup() {
+  return launch_setup(g_dbl, miller_dbl_kernel, TPB, DBL_SMEM);
+}
+
+// Blocks of miller_dbl_kernel resident on one SM, or a negative CUDA error.
+int tower_fused_dbl_blocks_per_sm(void) {
+  const LaunchSetup& s = dbl_setup();
+  return s.rc ? -s.rc : s.per_sm;
+}
+
 int miller_dbl(const float* f, const float* r, const float* p, float* f_out,
                float* r_out, int n, int lb, float* scratch, const float* kc,
-               void* stream) {
+               const int* kt, void* stream) {
   if (n <= 0) return 0;
+  const int rc = dbl_setup().rc;
+  if (rc) return rc;
   unsigned grid = (unsigned)((n + lb - 1) / lb);
-  miller_dbl_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(f, r, p, f_out, r_out, n,
-                                                             lb, scratch, kc);
+  miller_dbl_kernel<<<grid, TPB, DBL_SMEM, (cudaStream_t)stream>>>(f, r, p, f_out, r_out, n,
+                                                                    lb, scratch, kc, kt);
   return (int)cudaGetLastError();
 }
 

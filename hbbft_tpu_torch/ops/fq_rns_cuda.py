@@ -6,7 +6,9 @@ says what bounds them and why they are laid out as they are):
 
 * ``fq_rns_mul``  replaces ``_mul_kernel`` / ``_mul_core`` — one full-RNS
   Montgomery product a·b·M1⁻¹ (mod Q) per lane, with the ``reduced``
-  flag of ``_mul_core`` (skip the input renormalization);
+  flag of ``_mul_core`` (skip the input renormalization); its warps run
+  the base extensions as int8 tensor-core products, fed by the constant
+  planes ``_pack_tc_planes`` packs;
 * ``fq_rns_pow``  replaces ``_pow_kernel`` — the whole square-and-multiply
   chain over a fixed exponent in one launch (its reason to exist is the
   380-bit Fermat inverse Q−2);
@@ -22,8 +24,12 @@ run the plain version on CPU tensors and launch the kernel on CUDA
 tensors; there is no fallback from one to the other.  Each wrapper
 counts its launches in ``.launches``.
 
-Layout: the public ``(..., 79)`` float32 rows.  The kernel transposes
-its tile in shared memory, so there is no separate layout pass.
+Layout: the public ``(..., 79)`` float32 rows.  ``fq_rns_mul`` reads
+them row by row (its warps stage and reduce in place), the power and
+chain kernels transpose their tile in shared memory, so there is no
+separate layout pass.  A one-row operand of ``mul`` is read in place with
+lane stride 0 (counted in ``mul.broadcast_launches``); other broadcasts
+are expanded first.
 """
 
 from __future__ import annotations
@@ -71,6 +77,40 @@ def _pack_kernel_consts() -> np.ndarray:
 
 _KCONSTS = _pack_kernel_consts()
 
+#: the tensor-core tiling of the extensions (csrc/fq_rns_core.cuh): n-tiles
+#: of 8 outputs, k-steps of 32 residues, B-fragment registers, warp lanes
+TC_NT, TC_KS, TC_REGS, TC_LANES = 5, 2, 2, 32
+TC_K = TC_KS * 32  # the 39 input residues padded to 64
+
+
+def _tc_fragment_index():
+    """(k, n) of each byte of one plane in mma.sync m16n8k32 B-fragment
+    order [nt][ks][reg][lane][byte]: lane = 4g + t holds column
+    n = 8·nt + g and rows k = 32·ks + 16·reg + 4t + byte."""
+    nt, ks, reg, lane, byte = np.meshgrid(
+        np.arange(TC_NT), np.arange(TC_KS), np.arange(TC_REGS), np.arange(TC_LANES),
+        np.arange(4), indexing="ij")
+    k = 32 * ks + 16 * reg + 4 * (lane & 3) + byte
+    n = 8 * nt + (lane >> 2)
+    return k.reshape(-1), n.reshape(-1)
+
+
+def _pack_tc_planes() -> np.ndarray:
+    """The int8 extension planes for the warp-wide tensor-core body
+    (``mul_warp``): [extension][plane][nt][ks][reg][lane][byte], the two
+    extensions' E_lo and E_hi with K = 39 padded by zeros to 64, each byte
+    the value a thread feeds its B fragment (every value in [0, 63])."""
+    k, n = _tc_fragment_index()
+    out = []
+    for plane in (R._E1_LO, R._E1_HI, R._E2_LO, R._E2_HI):
+        padded = np.zeros((TC_K, plane.shape[1]), dtype=np.int64)
+        padded[: plane.shape[0]] = plane
+        out.append(padded[k, n])
+    return np.concatenate(out).astype(np.int8)
+
+
+_KPLANES = _pack_tc_planes()
+
 _PLAIN = {
     "p": _P, "ip": _IP, "xoff": _XOFF, "sigc": R._SIGMA_C_B1,
     "e1_lo": R._E1_LO, "e1_hi": R._E1_HI, "e2_lo": R._E2_LO, "e2_hi": R._E2_HI,
@@ -86,6 +126,7 @@ def _consts(device) -> dict:
     if c is None:
         c = {k: torch.as_tensor(v, device=key) for k, v in _PLAIN.items()}
         c["kernel"] = torch.as_tensor(_KCONSTS, device=key)
+        c["planes"] = torch.as_tensor(_KPLANES, device=key)
         _DEV[key] = c
     return c
 
@@ -104,16 +145,20 @@ def _mod_lanes(x, p, ip):
     return x
 
 
-def _split_dot(v, lo, hi, p, ip, exact: bool):
-    """mod-p Σ_i v_i·E[i, j] as the TPU kernel's four 6-bit/5-bit plane
-    products: ll + 64·loose(lh + hl) + 4096·canonical(hh), each partial
-    an exact float32 integer sum below 2^18."""
+def _plane_partials(v, lo, hi):
+    """The three partial sums of Σ_i v_i·E[i, j] over the 6-bit/5-bit
+    planes of v and E: (ll, lh + hl, hh), each an exact float32 integer
+    below 2^19."""
     v_hi = torch.floor(v * (1.0 / 64.0))
     v_lo = v - 64.0 * v_hi
-    ll = v_lo @ lo
-    mid = _mod_loose(v_hi @ lo + v_lo @ hi, p, ip)
-    hh = _mod_lanes(v_hi @ hi, p, ip)
-    out = ll + 64.0 * mid + 4096.0 * hh
+    return v_lo @ lo, v_hi @ lo + v_lo @ hi, v_hi @ hi
+
+
+def _split_dot(v, lo, hi, p, ip, exact: bool):
+    """mod-p Σ_i v_i·E[i, j] as the TPU kernel's four 6-bit/5-bit plane
+    products: ll + 64·loose(lh + hl) + 4096·canonical(hh)."""
+    ll, mid, hh = _plane_partials(v, lo, hi)
+    out = ll + 64.0 * _mod_loose(mid, p, ip) + 4096.0 * _mod_lanes(hh, p, ip)
     return _mod_lanes(out, p, ip) if exact else _mod_loose(out, p, ip)
 
 
@@ -177,19 +222,26 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(_SRC)
     if not getattr(lib, "_hbbft_ready", False):
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.fq_rns_mul.argtypes = [ptr, ptr, ptr, i, i, ptr, ptr]
+        lib.fq_rns_mul.argtypes = [ptr, i, ptr, i, ptr, i, i, ptr, ptr, ptr]
         lib.fq_rns_mul.restype = i
         lib.fq_rns_pow.argtypes = [ptr, ptr, i, ptr, i, ptr, ptr]
         lib.fq_rns_pow.restype = i
         lib.fq_rns_chain.argtypes = [ptr, ptr, ptr, i, i, ptr, ptr]
         lib.fq_rns_chain.restype = i
         lib.fq_rns_const_floats.restype = i
+        lib.fq_rns_tc_bytes.restype = i
+        lib.fq_rns_mul_blocks_per_sm.restype = i
         lib.fq_rns_error_string.argtypes = [i]
         lib.fq_rns_error_string.restype = ctypes.c_char_p
         if lib.fq_rns_const_floats() != _KCONSTS.size:
             raise RuntimeError(
                 f"fq_rns.cu expects {lib.fq_rns_const_floats()} constants, "
                 f"the wrapper packs {_KCONSTS.size}"
+            )
+        if lib.fq_rns_tc_bytes() != _KPLANES.size:
+            raise RuntimeError(
+                f"fq_rns.cu expects {lib.fq_rns_tc_bytes()} plane bytes, "
+                f"the wrapper packs {_KPLANES.size}"
             )
         lib._hbbft_ready = True
     return lib
@@ -210,6 +262,15 @@ def _check_rows(*ts: torch.Tensor) -> None:
             )
 
 
+def _lane_operand(t: torch.Tensor, shape) -> tuple:
+    """(rows, lane stride) of one ``mul`` operand: a single row (numel 79)
+    is read in place by every lane (stride 0); any other operand is
+    expanded to the broadcast shape and read row by row (stride 79)."""
+    if t.numel() == NL:
+        return t.contiguous(), 0
+    return t.expand(shape).contiguous(), NL
+
+
 def mul(a: torch.Tensor, b: torch.Tensor, reduced: bool = False) -> torch.Tensor:
     """Montgomery product of (..., 79) residue rows (broadcasting).
 
@@ -221,28 +282,41 @@ def mul(a: torch.Tensor, b: torch.Tensor, reduced: bool = False) -> torch.Tensor
     if not (a.is_cuda and a.device == b.device):
         raise ValueError(f"operands on {a.device} and {b.device}")
     shape = torch.broadcast_shapes(a.shape, b.shape)
-    a = a.expand(shape).contiguous()
-    b = b.expand(shape).contiguous()
     out = torch.empty(shape, dtype=torch.float32, device=a.device)
     n = out.numel() // NL
     if n == 0:
         return out
+    a, sa = _lane_operand(a, shape)
+    b, sb = _lane_operand(b, shape)
     lib = _lib()
-    kc = _consts(a.device)["kernel"]
+    c = _consts(a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.fq_rns_mul(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), n, int(bool(reduced)),
-            kc.data_ptr(), stream,
+            a.data_ptr(), sa, b.data_ptr(), sb, out.data_ptr(), n, int(bool(reduced)),
+            c["kernel"].data_ptr(), c["planes"].data_ptr(), stream,
         )
     _check(lib, rc, "fq_rns_mul")
     mul.launches += 1
     mul.lanes += n
     mul.widths[n.bit_length()] += 1
+    if n > 1 and not (sa and sb):
+        mul.broadcast_launches += 1
     return out
 
 
+def mul_blocks_per_sm(device) -> int:
+    """Blocks of ``fq_rns_mul`` resident on one SM of the card (the
+    occupancy query of the CUDA runtime for its launch configuration)."""
+    with torch.cuda.device(device):
+        got = _lib().fq_rns_mul_blocks_per_sm()
+    if got <= 0:
+        raise RuntimeError(f"fq_rns_mul occupancy query failed ({-got})")
+    return got
+
+
 mul.launches = 0
+mul.broadcast_launches = 0  # launches with a one-row operand read at lane stride 0
 mul.lanes = 0  # lanes over all launches (lanes / launches = mean launch width)
 mul.widths = Counter()  # launches by width class: key b holds widths in [2^(b-1), 2^b)
 
@@ -328,6 +402,7 @@ def reset_launches() -> None:
         fn.launches = 0
         fn.lanes = 0
         fn.widths.clear()
+    mul.broadcast_launches = 0
 
 
 def build() -> Dict[str, float]:

@@ -4,7 +4,8 @@ Three kernels (the design note in the source says what bounds them):
 
 * ``tower_op``   replaces ``tower_fused._op_kernel`` — one fq2/fq6/fq12
   multiply or square, or a cyclotomic square;
-* ``miller_dbl`` replaces ``_dbl_kernel`` — one Miller doubling;
+* ``miller_dbl`` replaces ``_dbl_kernel`` — one Miller doubling, its
+  products on the warp-wide tensor-core body;
 * ``hard_exp``   replaces ``_hard_kernel`` — the whole final-exponentiation
   hard part.
 
@@ -33,8 +34,10 @@ from hbbft_tpu_torch.utils import cuda_build
 NL = TF.NL
 _SRC = "tower_fused"
 
-#: lanes per block: one at narrow widths (parallelism across blocks), up to
-#: MAX_LB when a launch already fills the card's 132 SMs twice over
+#: most lanes per block of the tower kernels.  tower_op and hard_exp take
+#: one at narrow widths (parallelism across blocks), up to MAX_LB when a
+#: launch already fills the card's 132 SMs twice over; miller_dbl a power
+#: of two up to MAX_LB (see dbl_lanes_per_block)
 MAX_LB = 8
 _SMS = 132
 
@@ -47,12 +50,13 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_hbbft_ready", False):
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.tower_op.argtypes = [i, ptr, ptr, ptr, i, i, ptr, ptr, ptr, ptr]
-        lib.miller_dbl.argtypes = [ptr, ptr, ptr, ptr, ptr, i, i, ptr, ptr, ptr]
+        lib.miller_dbl.argtypes = [ptr, ptr, ptr, ptr, ptr, i, i, ptr, ptr, ptr, ptr]
         lib.hard_exp.argtypes = [ptr, i, ptr, ptr, i, i, ptr, ptr, ptr, ptr]
         for fn in (lib.tower_op, lib.miller_dbl, lib.hard_exp):
             fn.restype = i
         for name in ("tower_fused_const_floats", "tower_fused_op_slots",
-                     "tower_fused_dbl_slots", "tower_fused_hard_slots"):
+                     "tower_fused_dbl_slots", "tower_fused_hard_slots",
+                     "tower_fused_tc_bytes", "tower_fused_dbl_blocks_per_sm"):
             getattr(lib, name).restype = i
         lib.tower_fused_error_string.argtypes = [i]
         lib.tower_fused_error_string.restype = ctypes.c_char_p
@@ -61,12 +65,45 @@ def _lib() -> ctypes.CDLL:
                 f"tower_fused.cu expects {lib.tower_fused_const_floats()} constants, "
                 f"the wrapper packs {fq_rns_cuda._KCONSTS.size}"
             )
+        if lib.tower_fused_tc_bytes() != fq_rns_cuda._KPLANES.size:
+            raise RuntimeError(
+                f"tower_fused.cu expects {lib.tower_fused_tc_bytes()} plane bytes, "
+                f"the wrapper packs {fq_rns_cuda._KPLANES.size}"
+            )
         lib._hbbft_ready = True
     return lib
 
 
 def _lanes_per_block(n: int) -> int:
     return max(1, min(MAX_LB, n // (2 * _SMS)))
+
+
+def dbl_lanes_per_block(n: int, resident: int) -> int:
+    """miller_dbl's lanes per block for n lanes on a card that holds
+    ``resident`` of its blocks at once (blocks per SM x SMs): the smallest
+    power of two, at most MAX_LB, whose grid fits at once."""
+    lb = 1
+    while lb < MAX_LB and -(-n // lb) > resident:
+        lb *= 2
+    return lb
+
+
+_RESIDENT: Dict[torch.device, int] = {}
+
+
+def dbl_resident_blocks(device) -> int:
+    """Blocks of miller_dbl the card holds at once: the occupancy query's
+    blocks per SM times the SM count (cached per device)."""
+    device = torch.device(device)
+    got = _RESIDENT.get(device)
+    if got is None:
+        with torch.cuda.device(device):
+            per_sm = _lib().tower_fused_dbl_blocks_per_sm()
+        if per_sm <= 0:
+            raise RuntimeError(f"miller_dbl occupancy query failed ({-per_sm})")
+        got = _RESIDENT[device] = per_sm * torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return got
 
 
 def _check(t: torch.Tensor, coeffs: int, n: int, what: str) -> None:
@@ -130,14 +167,14 @@ def miller_dbl(f: torch.Tensor, r: torch.Tensor, p: torch.Tensor):
     if n == 0:
         return f_out, r_out
     lib = _lib()
-    lb = _lanes_per_block(n)
+    lb = dbl_lanes_per_block(n, dbl_resident_blocks(f.device))
     scratch = _scratch(lib.tower_fused_dbl_slots(), n, lb, f.device)
-    kc = fq_rns_cuda._consts(f.device)["kernel"]
+    c = fq_rns_cuda._consts(f.device)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
         rc = lib.miller_dbl(f.data_ptr(), r.data_ptr(), p.data_ptr(), f_out.data_ptr(),
-                            r_out.data_ptr(), n, lb, scratch.data_ptr(), kc.data_ptr(),
-                            stream)
+                            r_out.data_ptr(), n, lb, scratch.data_ptr(),
+                            c["kernel"].data_ptr(), c["planes"].data_ptr(), stream)
     _launch(lib, rc, "miller_dbl")
     _count(miller_dbl, n)
     return f_out, r_out

@@ -4,6 +4,7 @@ port's counterpart of the JAX package's ``tools/kernel_bench.py``.
     python -m hbbft_tpu_torch.tools.kernel_bench            # on the card
     python -m hbbft_tpu_torch.tools.kernel_bench --device cpu --lanes 8 \\
         --chain 2 --probe-shape 4x8 --probe-iters 10        # plain versions
+    python -m hbbft_tpu_torch.tools.kernel_bench --launch    # per-launch times
 
 At each width (lanes; default 4k/16k/64k/256k) it times
 
@@ -12,7 +13,16 @@ At each width (lanes; default 4k/16k/64k/256k) it times
   overlaps the next;
 * ``fq_rns_chain``: one launch of ``--chain`` products x ← x·b;
 
-and reports ms per launch (per product for the chain) and M muls/s.  Both
+and reports ms per launch (per product for the chain) and M muls/s.
+
+With ``--launch`` it times instead one launch of ``fq_rns_mul`` and of
+``miller_dbl`` at the epoch path's mean widths (``--launch-lanes``), each
+two ways: one call between two CUDA events, as ``chip_smoke.time_ms``
+does (so it also counts the host's launch latency), and per call of
+``STREAM`` back-to-back calls between two events (the card never waits on
+the host).  Only public wrappers that every version of the port has are
+called, so this file can time another checkout's package: run it as a
+script with that checkout's root on ``PYTHONPATH``.  Both
 field arms run in this one process: their kernels are called directly,
 not through the ``HBBFT_TPU_FQ_IMPL`` facade.  Then the FMA probe
 (``fma_probe``) at a tile that fills the card's 132 SMs several times
@@ -39,6 +49,7 @@ import numpy as np
 import torch
 
 from hbbft_tpu_torch.ops import fq_limb_cuda, fq_rns_cuda, probe_cuda
+from hbbft_tpu_torch.ops import tower_fused, tower_fused_cuda
 from hbbft_tpu_torch.utils.device import resolve
 
 LANES = (4096, 16384, 65536, 262144)
@@ -47,6 +58,10 @@ CHAIN = 200
 PROBE_SHAPE = (2112, 1024)
 PROBE_ITERS = probe_cuda.REF_ITERS
 FP32_PEAK_TFLOPS = 67.0  # H100 SXM, float32 outside the tensor cores, 700 W
+#: mean launch widths of fq_rns_mul and miller_dbl on two N=100 epochs
+LAUNCH_LANES = (191251, 1593)
+#: back-to-back calls per sample of the second per-launch timing
+STREAM = 50
 
 
 def card_line(dev: torch.device) -> str:
@@ -84,9 +99,45 @@ def seconds_per_call(fn, dev: torch.device, reps: int = 5) -> float:
     return times[len(times) // 2]
 
 
+def ms_per_launch(fn, dev: torch.device, reps: int = 7) -> dict:
+    """Median ms of one fn() after one warm-up: ``single`` one call between
+    two CUDA events, ``stream`` per call of STREAM back-to-back calls (on
+    the CPU both are the host clock's, per call)."""
+    return {"single": seconds_per_call(fn, dev, reps) * 1e3,
+            "stream": seconds_per_call(_repeat(fn, STREAM), dev, reps) * 1e3 / STREAM}
+
+
+def launch_run(device="cuda", lanes=LAUNCH_LANES, log=print) -> dict:
+    """Per-launch ms of fq_rns_mul (lanes[0]) and miller_dbl (lanes[1])."""
+    dev = resolve(device)
+    card = card_line(dev)
+    rng = np.random.default_rng(0)
+    n_mul, n_dbl = lanes
+    a, b = _rows(rng, n_mul, fq_rns_cuda.NL, dev), _rows(rng, n_mul, fq_rns_cuda.NL, dev)
+    f, r, p = (_rows(rng, c * n_dbl, fq_rns_cuda.NL, dev).reshape(c, n_dbl, -1)
+               for c in (12, 6, 2))
+    dbl = tower_fused_cuda.miller_dbl if dev.type == "cuda" else tower_fused.dbl_plain
+    rows = []
+    for name, n, fn in (("fq_rns_mul", n_mul, lambda: fq_rns_cuda.mul(a, b)),
+                        ("miller_dbl", n_dbl, lambda: dbl(f, r, p))):
+        ms = ms_per_launch(fn, dev)
+        rows.append({"kernel": name, "lanes": n, **ms})
+        log(f"kernel_bench launch {name} lanes={n}: {ms['single']:.4f} ms one call, "
+            f"{ms['stream']:.4f} ms a call of {STREAM} back to back [{card}]")
+    return {"device": str(dev), "card": card, "launch": rows}
+
+
 def _rows(rng, lanes: int, width: int, dev) -> torch.Tensor:
     return torch.as_tensor(rng.integers(0, 256, size=(lanes, width)).astype(np.float32),
                            device=dev)
+
+
+def _repeat(fn, n: int):
+    def run():
+        for _ in range(n):
+            fn()
+
+    return run
 
 
 def _launch_chain(mul, a, b, n: int):
@@ -147,7 +198,15 @@ def main(argv=None) -> dict:
                     help="dependent launches per timing (products per chain launch)")
     ap.add_argument("--probe-shape", type=_shape, default=PROBE_SHAPE, help="ROWSxCOLS")
     ap.add_argument("--probe-iters", type=int, default=PROBE_ITERS)
+    ap.add_argument("--launch", action="store_true",
+                    help="time one launch of fq_rns_mul and miller_dbl instead")
+    ap.add_argument("--launch-lanes", default=",".join(map(str, LAUNCH_LANES)),
+                    help="MUL,DBL: their widths under --launch")
     args = ap.parse_args(argv)
+    if args.launch:
+        res = launch_run(args.device, tuple(int(v) for v in args.launch_lanes.split(",")))
+        print(json.dumps(res))
+        return res
     res = run(args.device, [int(v) for v in args.lanes.split(",")], args.chain,
               args.probe_shape, args.probe_iters)
     print(json.dumps(res))

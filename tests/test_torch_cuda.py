@@ -50,23 +50,44 @@ def _lazy(rng, n):
     return rows, vals
 
 
+#: fq_rns_mul's checked widths: one lane, around two 64-lane blocks, a
+#: ragged persistent grid, full blocks, and the epoch path's mean launch
+#: width (191,251 lanes over two N=100 epochs, PERF.md)
+MUL_WIDTHS = (1, 127, 128, 129, 1001, 65536, 191251)
+
+
+def _lazy_n(rng, n):
+    """n lazy-domain rows (and their values) from _lazy's pattern."""
+    rows, vals = _lazy(rng, 2 * max(1, -(-n // 3)))  # _lazy halves an even count
+    reps = -(-n // len(rows))
+    return np.tile(rows, (reps, 1))[:n], (vals * reps)[:n]
+
+
+@pytest.mark.parametrize("bcast", ["none", "left", "right"])
 @pytest.mark.parametrize("reduced", [False, True])
-def test_mul_kernel_equals_plain(dev, reduced):
-    rng = random.Random(9)
-    a_np, va = _lazy(rng, 666)  # 1002 lanes: a ragged last block
-    b_np, vb = _lazy(rng, 666)
+@pytest.mark.parametrize("n", MUL_WIDTHS)
+def test_mul_kernel_equals_plain(dev, n, reduced, bcast):
+    """Bit-equal to the plain version; with a one-row operand on either
+    side (read at lane stride 0, no expand) too."""
+    rng = random.Random(9 + n)
+    a_np, va = _lazy_n(rng, n)
+    b_np, vb = _lazy_n(rng, n)
     a, b = torch.as_tensor(a_np, device=dev), torch.as_tensor(b_np, device=dev)
+    if bcast == "left":
+        a, va = a[n // 2], [va[n // 2]] * n  # a (79,) row
+    elif bcast == "right":
+        b, vb = b[n // 3 : n // 3 + 1], [vb[n // 3]] * n  # a (1, 79) row
     if reduced:  # reduced operands are mul outputs
         a, b = K.mul_plain(a, a), K.mul_plain(b, b)
         va, vb = [x * x % Q for x in va], [y * y % Q for y in vb]
-    n0 = K.mul.launches
+    n0, s0 = K.mul.launches, K.mul.broadcast_launches
     got = K.mul(a, b, reduced=reduced)
     torch.cuda.synchronize()
     assert K.mul.launches == n0 + 1
+    assert K.mul.broadcast_launches == s0 + (bcast != "none" and n > 1)
+    assert got.shape == (n, R.NLIMBS)
     assert torch.equal(got, K.mul_plain(a, b, reduced=reduced))
     assert R.to_ints(got) == [x * y % Q for x, y in zip(va, vb)]
-    one = torch.as_tensor(R.from_int(5), device=dev)  # broadcast operand
-    assert torch.equal(K.mul(a, one), K.mul_plain(a, one.expand_as(a)))
 
 
 @pytest.mark.parametrize("exponent", [1, 2, 0b1011010111, Q - 2])
@@ -116,7 +137,7 @@ def test_backend_on_the_card_matches_the_cpu(dev):
 
 
 def _packed(dev, rng, coeffs, n):
-    rows, _ = _lazy(rng, -(-coeffs * n * 2 // 3))
+    rows, _ = _lazy(rng, 2 * -(-coeffs * n // 3))  # _lazy halves an even count
     return torch.as_tensor(rows[: coeffs * n].reshape(coeffs, n, R.NLIMBS), device=dev)
 
 
@@ -133,13 +154,31 @@ def test_tower_op_kernel_equals_plain(dev, kind):
         assert torch.equal(got, TF.op_plain(kind, a, b))
 
 
-def test_miller_dbl_kernel_equals_plain(dev):
-    rng = random.Random(14)
-    for n in (1, 300, 1001):
-        f, r, p = (_packed(dev, rng, c, n) for c in (12, 6, 2))
-        got_f, got_r = TK.miller_dbl(f, r, p)
-        want_f, want_r = TF.dbl_plain(f, r, p)
-        assert torch.equal(got_f, want_f) and torch.equal(got_r, want_r)
+#: miller_dbl's checked widths besides one per lanes-per-block class: one
+#: lane, a ragged last block, a full grid, and the epoch path's mean
+#: launch width (1,593 lanes, PERF.md)
+DBL_WIDTHS = (1, 1001, 2112, 1593)
+
+
+@pytest.mark.parametrize("width", [*(f"n={n}" for n in DBL_WIDTHS),
+                                   *(f"lb={lb}" for lb in (1, 2, 4, 8))])
+def test_miller_dbl_kernel_equals_plain(dev, width):
+    """Bit-equal to the plain version.  ``lb=L`` is the widest launch of
+    the class that sizes blocks of L lanes on this card, less one lane
+    (a ragged last block when L > 1)."""
+    kind, val = width.split("=")
+    n = int(val)
+    if kind == "lb":
+        n = max(1, TK.dbl_resident_blocks(dev) * n - (n > 1))
+        assert TK.dbl_lanes_per_block(n, TK.dbl_resident_blocks(dev)) == int(val)
+    rng = random.Random(14 + n)
+    f, r, p = (_packed(dev, rng, c, n) for c in (12, 6, 2))
+    n0 = TK.miller_dbl.launches
+    got_f, got_r = TK.miller_dbl(f, r, p)
+    want_f, want_r = TF.dbl_plain(f, r, p)
+    torch.cuda.synchronize()
+    assert TK.miller_dbl.launches == n0 + 1
+    assert torch.equal(got_f, want_f) and torch.equal(got_r, want_r)
 
 
 def test_hard_exp_kernel_equals_plain(dev):

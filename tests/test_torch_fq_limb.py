@@ -233,3 +233,17 @@ def test_kernel_bench_on_the_cpu(capsys):
     assert "not a device metric" in res["card"]
     assert out.count("M muls/s") == 3 and "TFLOP/s" in out
     assert all(res["card"] in line for line in out.splitlines()[:-1])
+
+
+def test_kernel_bench_launch_times_on_the_cpu(capsys):
+    """``--launch``: one row per kernel with both timings, every line
+    naming the device."""
+    res = kernel_bench.main(["--device", "cpu", "--launch", "--launch-lanes", "5,2"])
+    out = capsys.readouterr().out
+    assert [(r["kernel"], r["lanes"]) for r in res["launch"]] == [
+        ("fq_rns_mul", 5), ("miller_dbl", 2)]
+    assert all(r["single"] > 0 and r["stream"] > 0 for r in res["launch"])
+    assert "not a device metric" in res["card"]
+    assert out.count("back to back") == 2
+    assert all(res["card"] in line for line in out.splitlines()[:-1])
+
