@@ -20,7 +20,9 @@ Phases (any failure exits non-zero and prints no result line):
              phase) at MUL_WIDTHS and the epoch's mean width, reduced or
              not, with a one-row operand on either side or none;
              ``miller_dbl`` at DBL_WIDTHS, the epoch's mean width and one
-             width per lanes-per-block class of this card.
+             width per lanes-per-block class of this card; ``hard_exp`` at
+             HARD_WIDTHS, the mean and where its lanes per block step up;
+             ``fq_rns_pow`` at POW_WIDTHS and the epoch's widest launch.
 3. path    — the threshold-decryption crypto path of one N=100, f=33
              HoneyBadger epoch through ``TorchBackend()`` (the first slice's
              path, now on the fused chain): ciphertext checks (one
@@ -52,10 +54,11 @@ Phases (any failure exits non-zero and prints no result line):
    path (epoch, limb arm or bench), largest difference from the plain
    version (phase 2's widths and the path's), median kernel time at the
    path's mean launch width (``time_ms``: one call between two CUDA
-   events), the plain version's time and the bound (the least time
-   the card could take: see ``bound`` and ``roofline``).  Before it: the
-   compiler's ``-Xptxas -v`` lines, each kernel's occupancy and the
-   epoch's ``fq_rns_mul`` launch widths.
+   events; ``fq_rns_pow`` at the epoch's widest launch, no launch having
+   its mean width, with its 1-lane time beside), the plain version's time
+   and the bound (the least time the card could take: see ``bound`` and
+   ``roofline``).  Before it: the compiler's ``-Xptxas -v`` lines, each
+   kernel's occupancy and the epoch's launch widths.
 6. per-phase seconds, device_dispatches, and the card's name and power
    limit; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -126,6 +129,13 @@ MUL_WIDTHS = (1, 127, 128, 129, 1001, 65536)
 #: width per lanes-per-block class: one lane, a ragged last block (LB = 2),
 #: a grid that fills the card exactly (LB = 4)
 DBL_WIDTHS = (1, 1001, 2112)
+#: widths hard_exp is checked at besides the main path's mean and the two
+#: widths where its lanes per block step from 1 to 2: one to three lanes
+#: and a ragged 37
+HARD_WIDTHS = (1, 2, 3, 37)
+#: widths fq_rns_pow is checked at besides the main path's widest launch:
+#: one lane, and around one warp's group of 16
+POW_WIDTHS = (1, 15, 16, 17)
 #: widths the limb kernels and the RNS chain are checked at besides their
 #: path's mean: one lane, a partial 128-lane block, full blocks
 LIMB_WIDTHS = (1, 1001, 4096)
@@ -487,7 +497,7 @@ def check_dbl_widths(dev, rng, n_mean: int, errs: dict) -> None:
     this card, its widest launch less one lane (a ragged last block)."""
     from hbbft_tpu_torch.ops import tower_fused as TF, tower_fused_cuda as TK
 
-    resident = TK.dbl_resident_blocks(dev)
+    resident = TK.resident_blocks(dev, "miller_dbl")
     classes, lb = [], 1
     while lb <= TK.MAX_LB:
         classes.append(max(1, resident * lb - (lb > 1)))
@@ -496,10 +506,24 @@ def check_dbl_widths(dev, rng, n_mean: int, errs: dict) -> None:
         f, r, p = (tower_inputs(dev, rng, c, n) for c in (12, 6, 2))
         got_f, got_r = TK.miller_dbl(f, r, p)
         want_f, want_r = TF.dbl_plain(f, r, p)
-        lb = TK.dbl_lanes_per_block(n, resident)
+        lb = TK.lanes_per_block(n, resident)
         errs["miller_dbl"] = max(errs.get("miller_dbl", 0.0),
                                  same(f"miller_dbl f (LB={lb})", got_f, want_f),
                                  same(f"miller_dbl R (LB={lb})", got_r, want_r))
+
+
+def check_hard_widths(dev, rng, errs: dict) -> None:
+    """hard_exp against its plain version at HARD_WIDTHS and where its
+    lanes per block step from 1 to 2 on this card (the resident blocks,
+    and one lane more)."""
+    from hbbft_tpu_torch.ops import tower_fused as TF, tower_fused_cuda as TK
+
+    resident = TK.resident_blocks(dev, "hard_exp")
+    for n in (*HARD_WIDTHS, resident, resident + 1):
+        m = tower_inputs(dev, rng, 12, n)
+        lb = TK.lanes_per_block(n, resident)
+        errs["hard_exp"] = max(errs.get("hard_exp", 0.0),
+                               same(f"hard_exp (LB={lb})", TK.hard_exp(m), TF.hard_plain(m)))
 
 
 def limb_arm_payload(state, n_items: int) -> dict:
@@ -717,11 +741,11 @@ def same(name: str, got, want) -> float:
     return e
 
 
-def kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list:
+def kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict, n_pow: int) -> list:
     """Hold each kernel against its plain version at the main path's
-    widths (one lane and its mean launch width: main-path launches end
-    in a partial 128-lane block), then time both at the mean width
-    beside the bound."""
+    widths (one lane and its mean launch width; for fq_rns_pow, whose
+    launches are 1 to ~4k lanes wide and none at the mean, POW_WIDTHS and
+    the widest launch), then time both there beside the bound."""
     import torch
 
     from hbbft_tpu_torch.crypto.field import Q
@@ -730,7 +754,6 @@ def kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list:
     rows = []
     e = Q - 2
     n_mul = max(1, lanes["fq_rns_mul"] // max(1, launches["fq_rns_mul"]))
-    n_pow = max(1, lanes["fq_rns_pow"] // max(1, launches["fq_rns_pow"]))
     for n in (*MUL_WIDTHS, n_mul):
         a = torch.as_tensor(lazy_rows(rng, n, R)[0], device=dev)
         b = torch.flip(a, dims=(0,)).contiguous()
@@ -742,10 +765,12 @@ def kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list:
                 errs["fq_rns_mul"] = max(errs["fq_rns_mul"], same(
                     f"fq_rns_mul reduced={reduced}{tag}", K.mul(u, v, reduced=reduced),
                     K.mul_plain(u, v, reduced=reduced)))
-    for n in (1, n_pow):
-        x = torch.as_tensor(lazy_rows(rng, n, R)[0], device=dev)
+    pows = {}
+    for n in (*POW_WIDTHS, n_pow):
+        x = pows[n] = torch.as_tensor(lazy_rows(rng, n, R)[0], device=dev)
         errs["fq_rns_pow"] = max(errs["fq_rns_pow"], same(
             "fq_rns_pow e=Q-2", K.pow_fixed(x, e), K.pow_plain(x, e)))
+    x1, x = pows[1], pows[n_pow]
 
     ms = time_ms(lambda: K.mul(a, b))
     plain_ms = time_ms(lambda: K.mul_plain(a, b))
@@ -758,8 +783,11 @@ def kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list:
         "library_ms": None, "path": "epoch", "lanes": n_mul,
     })
 
+    ms_1 = time_ms(lambda: K.pow_fixed(x1, e), reps=5)
     ms = time_ms(lambda: K.pow_fixed(x, e), reps=5)
     plain_ms = time_ms(lambda: K.pow_plain(x, e), reps=3)
+    log(f"fq_rns_pow e=Q-2: {ms_1:.4f} ms at 1 lane, {ms:.4f} ms at {n_pow} lanes "
+        f"(the epoch's widest launch), one call each")
     products = (e.bit_length() - 1) + (bin(e).count("1") - 1)
     bound_ms, bound_by = bound(n_pow, products, products * MUL_EW_OPS_REDUCED + 79 * 4, 2)
     rows.append({
@@ -767,7 +795,7 @@ def kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list:
         "replaces": "hbbft_tpu/ops/fq_rns_pallas.py:276",
         "launches": launches["fq_rns_pow"], "max_abs_err": errs["fq_rns_pow"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "path": "epoch", "lanes": n_pow,
+        "library_ms": None, "path": "epoch", "lanes": n_pow, "ms_1_lane": ms_1,
     })
     return rows
 
@@ -814,6 +842,7 @@ def tower_kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list
         lambda: TF.dbl_plain(f, r, p), TK.miller_dbl(f, r, p), TF.dbl_plain(f, r, p))
 
     n = width["hard_exp"]
+    check_hard_widths(dev, rng, errs)
     m = tower_inputs(dev, rng, 12, n)
     row("hard_exp", 619, n, TF.analytic_hard_field_muls(), 24, lambda: TK.hard_exp(m),
         lambda: TF.hard_plain(m), [TK.hard_exp(m)], [TF.hard_plain(m)], reps=5)
@@ -1059,8 +1088,10 @@ def main(argv=None) -> int:
                 if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
                     log(f"  ptxas {name}:", line.strip())
         log(f"occupancy [{card}]: fq_rns_mul {K.mul_blocks_per_sm(dev)} blocks of "
-            f"128 threads per SM; miller_dbl {TK.dbl_resident_blocks(dev)} "
-            f"blocks of 128 threads resident on the card")
+            f"128 threads per SM; fq_rns_pow {K.pow_blocks_per_sm(dev)} blocks of 128 "
+            f"threads per SM; miller_dbl {TK.resident_blocks(dev, 'miller_dbl')} and "
+            f"hard_exp {TK.resident_blocks(dev, 'hard_exp')} blocks of 128 threads "
+            f"resident on the card")
 
         t = time.perf_counter()
         errs = phase_kernels(dev, rng, MUL_LANES, POW_LANES)
@@ -1098,9 +1129,11 @@ def main(argv=None) -> int:
         launches, lanes = read_launches("the main path (whole N=100 epochs)", EPOCH_KERNELS)
         widths = {"fq_rns_mul": dict(sorted(K.mul.widths.items())),
                   "fq_rns_pow": dict(sorted(K.pow_fixed.widths.items()))}
+        widest_pow = K.pow_fixed.widest
         log(f"epoch fq_rns_mul launch widths (key b: [2^(b-1), 2^b) lanes -> launches): "
             f"{json.dumps(widths['fq_rns_mul'])}; one-row operands at lane stride 0 in "
-            f"{K.mul.broadcast_launches} of {K.mul.launches} launches")
+            f"{K.mul.broadcast_launches} of {K.mul.launches} launches; fq_rns_pow's "
+            f"widest launch {widest_pow} lanes")
         result["fq_rns_mul_broadcast_launches"] = K.mul.broadcast_launches
 
         reset_launches()
@@ -1111,7 +1144,7 @@ def main(argv=None) -> int:
         bench_launches, bench_lanes = read_launches("the kernel bench", BENCH_KERNELS)
 
         t = time.perf_counter()
-        rows = kernel_rows(dev, rng, errs, launches, lanes)
+        rows = kernel_rows(dev, rng, errs, launches, lanes, widest_pow)
         rows += tower_kernel_rows(dev, rng, errs, launches, lanes)
         rows += limb_kernel_rows(dev, rng, errs, limb_res["launches"], limb_res["lanes"])
         rows += bench_kernel_rows(dev, rng, args.seed, errs, bench_launches, bench_lanes,

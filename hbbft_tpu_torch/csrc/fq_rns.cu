@@ -57,13 +57,30 @@
 // why a pass takes 16 lanes and not 32: with half the tile, 24 warps share
 // an SM instead of 16, and the card measured 12% faster.
 //
-// fq_rns_pow and fq_rns_chain keep the first design: a block owns TPB
-// consecutive lanes, copies its TPB x 79 slab into shared memory transposed
-// to [residue][lane] (stride TPB+1 against bank conflicts), and each thread
+// fq_rns_pow runs the same warp body.  It is a chain: 608 dependent
+// products per lane for the Fermat inverse Q-2 (380 squares, 228 set-bit
+// multiplies), at widths from 1 to ~4k lanes, so what bounds it is the
+// latency of one warp pass, 608 times over, not bytes or operations.  Each
+// warp owns one group of WARP_M = 16 lanes for the whole chain: it writes
+// the renormalized base loose(x) once to a per-launch scratch row set and
+// the accumulator to `out`'s rows, then issues every product of the bit
+// schedule through one call of `mul_warp` on those rows (the rows a warp
+// writes it alone reads back, residue r always by lane r % 32, so program
+// order orders the round trip through L2; a variant that kept both row
+// sets in shared memory measured no faster on the H100: PERF.md).  Blocks
+// hold 1, 2 or 4 warps, the fewest whose grid fits on the card's SMs at
+// once (the wrapper picks it: ops/fq_rns_cuda.py pow_warps_per_block), so
+// a narrow launch spreads its warps over the SMs instead of sharing one
+// SM's shared-memory pipe.  A pass alone takes ~5.7 us (one warp, one
+// lane: PERF.md), the latency of its dependent steps.
+//
+// fq_rns_chain keeps the first design: a block owns TPB consecutive lanes,
+// copies its TPB x 79 slab into shared memory transposed to
+// [residue][lane] (stride TPB+1 against bank conflicts), and each thread
 // runs `mul_core` for ONE lane down its own column, chaining its products
 // without leaving shared memory.  Per product a lane does 9,360 float32
 // multiply-adds (both extensions on the float32 pipe) plus ~400 ops of
-// reductions, so they are bound by operations.
+// reductions, so it is bound by operations.
 //
 // Exactness: see csrc/fq_rns_core.cuh.  Compile without --use_fast_math.
 
@@ -116,35 +133,59 @@ fq_rns_mul_kernel(const float* __restrict__ a, int sa, const float* __restrict__
   }
 }
 
-__global__ void __launch_bounds__(TPB)
-fq_rns_pow_kernel(const float* __restrict__ x, const int* __restrict__ bits,
-                  int nbits, float* __restrict__ out, int n,
-                  const float* __restrict__ kc) {
-  extern __shared__ float smem[];
-  float* K = smem;
-  float* A = K + N_CONSTS;  // accumulator
-  float* B = A + NL * LD;   // the (renormalized) base
-  const long base = (long)blockIdx.x * TPB;
-  const int cnt = (int)min((long)TPB, (long)n - base);
-  const int t = threadIdx.x;
-  load_consts(K, kc);
-  load_tile(B, x + base * NL, cnt);
+#define POW_MAX_WARPS 4
+#define POW_SMEM (TC_SMEM_BYTES + POW_MAX_WARPS * WARP_TILE * 4)
+
+// Warp w of block b owns lanes [16g, 16g + 16) for g = b*warps + w; base
+// is a (n, 79) scratch the kernel fills with loose(x).
+__global__ void __launch_bounds__(32 * POW_MAX_WARPS, 4)
+fq_rns_pow_kernel(const float* __restrict__ x, const int* __restrict__ bits, int nbits,
+                  float* __restrict__ out, float* __restrict__ base, int n,
+                  const float* __restrict__ kc, const int* __restrict__ kt) {
+  extern __shared__ __align__(16) float smem[];
+  load_tc_consts(smem, kc, kt);
   __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long l0 = ((long)blockIdx.x * (blockDim.x >> 5) + warp) * WARP_M;
+  if (l0 >= n) return;  // warp-uniform; no barrier follows
+  float* T = smem + NV + TC_WORDS + warp * WARP_TILE;
+  const int cnt = (int)min((long)WARP_M, (long)n - l0);
+
+  // base = acc = loose(x), row by row, residue r by lane r % 32
 #pragma unroll 1
-  for (int r = 0; r < NL; ++r) {
-    float v = mod_loose(B[r * LD + t], K[OFF_P + r], K[OFF_IP + r]);
-    B[r * LD + t] = v;
-    A[r * LD + t] = v;
+  for (int m = 0; m < cnt; ++m) {
+    const long row = (l0 + m) * NL;
+#pragma unroll
+    for (int rr = 0; rr < 3; ++rr) {
+      const int r = lane + 32 * rr;
+      if (r < NL) {
+        const float v = mod_loose(x[row + r], smem[VX(OFF_P) + r], smem[VX(OFF_IP) + r]);
+        base[row + r] = v;
+        out[row + r] = v;
+      }
+    }
   }
-  // MSB implicit: the accumulator starts at x; the bit schedule is
-  // warp-uniform, so the multiply is a branch rather than a blend.
+
+  // MSB implicit: the accumulator starts at the base.  Then, for each
+  // later bit, a square and, on a set bit, a multiply by the base: one
+  // call site walks that schedule (the bits are warp-uniform).  Padding
+  // lanes re-read the group's last row and store nothing.
+  const bool valid = lane < cnt;
+  const long lr = (l0 + (valid ? lane : cnt - 1)) * NL;
+  float* acc = out + lr;
+  const float* bs = base + lr;
+  int i = 1;
+  bool square = true;
 #pragma unroll 1
-  for (int i = 1; i < nbits; ++i) {
-    mul_core(A + t, LD, A + t, LD, A + t, LD, true, K);
-    if (bits[i]) mul_core(A + t, LD, B + t, LD, A + t, LD, true, K);
+  while (i < nbits) {
+    mul_warp(T, smem, acc, square ? acc : bs, acc, valid, true, lane);
+    if (square && __ldg(bits + i)) {
+      square = false;
+    } else {
+      square = true;
+      ++i;
+    }
   }
-  __syncthreads();
-  store_tile(out + base * NL, A, cnt);
 }
 
 __global__ void __launch_bounds__(TPB)
@@ -180,6 +221,10 @@ static const LaunchSetup& mul_setup() {
   return launch_setup(g_mul, fq_rns_mul_kernel, MUL_TPB, MUL_SMEM);
 }
 
+static const LaunchSetup& pow_setup() {
+  return launch_setup(g_pow, fq_rns_pow_kernel, 32 * POW_MAX_WARPS, POW_SMEM);
+}
+
 extern "C" {
 
 int fq_rns_const_floats(void) { return N_CONSTS; }
@@ -189,6 +234,12 @@ int fq_rns_tc_bytes(void) { return TC_BYTES; }
 // launch gets), or a negative CUDA error code.
 int fq_rns_mul_blocks_per_sm(void) {
   const LaunchSetup& s = mul_setup();
+  return s.rc ? -s.rc : s.per_sm;
+}
+
+// The same for fq_rns_pow_kernel at its widest block (4 warps).
+int fq_rns_pow_blocks_per_sm(void) {
+  const LaunchSetup& s = pow_setup();
   return s.rc ? -s.rc : s.per_sm;
 }
 
@@ -205,14 +256,18 @@ int fq_rns_mul(const float* a, int sa, const float* b, int sb, float* out, int n
   return (int)cudaGetLastError();
 }
 
-int fq_rns_pow(const float* x, const int* bits, int nbits, float* out, int n,
-               const float* kc, void* stream) {
+// warps: warps per block (1, 2 or 4), one 16-lane group each.
+int fq_rns_pow(const float* x, const int* bits, int nbits, float* out, float* base, int n,
+               int warps, const float* kc, const int* kt, void* stream) {
   if (n <= 0) return 0;
-  const int rc = launch_setup(g_pow, fq_rns_pow_kernel, TPB, SMEM_BYTES).rc;
+  if (warps < 1 || warps > POW_MAX_WARPS) return (int)cudaErrorInvalidValue;
+  const int rc = pow_setup().rc;
   if (rc) return rc;
-  unsigned grid = (unsigned)((n + TPB - 1) / TPB);
-  fq_rns_pow_kernel<<<grid, TPB, SMEM_BYTES, (cudaStream_t)stream>>>(
-      x, bits, nbits, out, n, kc);
+  const long groups = ((long)n + WARP_M - 1) / WARP_M;
+  const unsigned grid = (unsigned)((groups + warps - 1) / warps);
+  const int smem = TC_SMEM_BYTES + warps * WARP_TILE * 4;
+  fq_rns_pow_kernel<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(x, bits, nbits, out,
+                                                                     base, n, kc, kt);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
-// The one RNS Montgomery body on the card: the constant layout, the two
-// lane reductions and `mul_core`, shared by csrc/fq_rns.cu (the multiply
-// and power kernels) and csrc/tower_fused.cu (the fused tower kernels).
+// The RNS Montgomery bodies on the card: the constant layout, the two lane
+// reductions, the per-thread body `mul_core` and the warp-wide tensor-core
+// body `mul_warp`, shared by csrc/fq_rns.cu (the multiply, power and chain
+// kernels) and csrc/tower_fused.cu (the fused tower kernels).
 //
-// It is the port of `_mul_core` in hbbft_tpu/ops/fq_rns_pallas.py and
-// computes the same float32 values bit for bit.
+// Both are ports of `_mul_core` in hbbft_tpu/ops/fq_rns_pallas.py and
+// compute the same float32 values bit for bit.
 //
 // Exactness.  Every intermediate is an integer below 2^24 in magnitude (the
 // bounds are derived in hbbft_tpu/ops/fq_rns.py and fq_rns_pallas.py):
@@ -166,8 +167,8 @@ __device__ __forceinline__ void load_consts(float* K, const float* kc) {
 
 // ---------------------------------------------------------------------------
 // The warp-wide Montgomery body on the tensor cores (`mul_warp`): used by
-// fq_rns_mul (csrc/fq_rns.cu) and miller_dbl (csrc/tower_fused.cu); the
-// other kernels keep `mul_core`.
+// fq_rns_mul and fq_rns_pow (csrc/fq_rns.cu), miller_dbl and hard_exp
+// (csrc/tower_fused.cu); tower_op and fq_rns_chain keep `mul_core`.
 //
 // One warp computes WARP_M = 16 independent products at once.  Lanes
 // 0..15 each name the rows of one task (a, b, out: 79 contiguous floats

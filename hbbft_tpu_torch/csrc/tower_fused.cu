@@ -12,15 +12,16 @@
 // float32 integers (checked against the plain PyTorch versions in
 // hbbft_tpu_torch/ops/tower_fused.py, which equal the Pallas kernels).
 //
-// Design.  A block owns LB consecutive lanes (LB is chosen by the wrapper, 1
-// at the narrow widths of the verification path, up to 8 when the launch is
-// wide).  A tower operation is a sequence of rounds; each round is
+// Design.  A block owns LB consecutive lanes (LB is chosen by the wrapper,
+// 1 at narrow widths, up to 8 when the launch is wide).  A tower operation
+// is a sequence of rounds; each round is
 //   1. a pointwise phase: thread k of the block takes residue r of lane l
 //      (k = l*79 + r) and computes, from the lane's state, the round's
 //      operand pairs (Karatsuba sums, broadcast constants) into the staging
 //      rows OPA/OPB;
-//   2. a product phase: thread k takes product p of lane l and runs the
-//      whole Montgomery pipeline for it (OUT[p] = OPA[p]*OPB[p]);
+//   2. a product phase, OUT[p] = OPA[p]*OPB[p] for every product p of every
+//      lane: a warp pass of 16 products at a time (miller_dbl, hard_exp),
+//      or one thread per product (tower_op), as described below;
 //   3. the next pointwise phase reads the products and recombines them.
 // __syncthreads() separates the phases.  The lane state (the Miller f and R,
 // the hard part's register file of six fq12) and the staging rows live in a
@@ -39,31 +40,39 @@
 // double step) what they meet first is latency: a few serial rounds of
 // products with barriers between them.
 //
-// miller_dbl runs its products on the warp-wide tensor-core body
-// (`mul_warp`, csrc/fq_rns_core.cuh; pass `mul_pass_warp` below).  A round's
-// np*nl products are numbered task = p*nl + l and dealt to the block's warps
-// 16 at a time (the last group padded with dummy tasks that store
-// nothing); a warp reads each task's rows across its lanes (coalesced),
-// runs both extensions as int8 mma.sync products and writes the rows back.
-// The round's rows stay in the device-memory scratch: a lane's 162 staging
-// rows are 51 KB, so a block's would not fit in shared memory, and they
-// are written and read back by the same block within microseconds, so
-// they live in L2.  Shared memory holds the 12.3 KB of constants and the
-// four warps' 5 KB tiles (32,528 B); registers allow four blocks (16
-// warps) per SM.
-// Sizing (ops/tower_fused_cuda.py dbl_lanes_per_block): the lanes per block
-// LB is the smallest power of two (at most 8) for which the grid fits on
-// the card at once (blocks per SM from the occupancy query x SMs: 4 x 132
-// = 528 on the H100).  At the path's ~1,593 lanes that is LB = 4 and 399
-// blocks (3 per SM, 12 warps); the rounds' 192, 72, 28 and 180 products
-// are 12, 5, 2 and 12 groups of 16, so a doubling is 3 + 2 + 1 + 3 serial
-// warp passes of 16 products instead of 3 + 1 + 1 + 3 serial one-thread
-// products (ptxas: 126 registers, no spills).  What bounds it now is
-// those passes' latency (PERF.md).
+// miller_dbl and hard_exp run their products on the warp-wide tensor-core
+// body (`mul_warp`, csrc/fq_rns_core.cuh; pass `mul_pass_warp` below).  A
+// round's np*nl products are numbered task = p*nl + l and dealt to the
+// block's warps 16 at a time (the last group padded with dummy tasks that
+// store nothing); a warp reads each task's rows across its lanes
+// (coalesced), runs both extensions as int8 mma.sync products and writes
+// the rows back.  The round's rows stay in the device-memory scratch: a
+// lane's 162 staging rows are 51 KB, so a block's would not fit in shared
+// memory, and they are written and read back by the same block within
+// microseconds, so they live in L2.  Shared memory holds the 12.3 KB of
+// constants and the four warps' 5 KB tiles (32,528 B); registers allow
+// four blocks (16 warps) per SM.
+// Sizing (ops/tower_fused_cuda.py lanes_per_block, one policy for both):
+// the lanes per block LB is the smallest power of two (at most 8) for
+// which the grid fits on the card at once (the kernel's blocks per SM from
+// the occupancy query x SMs: 4 x 132 = 528 on the H100).  miller_dbl at
+// the path's ~1,593 lanes: LB = 4 and 399 blocks (3 per SM, 12 warps); its
+// rounds' 192, 72, 28 and 180 products are 12, 5, 2 and 12 groups of 16,
+// so a doubling is 3 + 2 + 1 + 3 serial warp passes of 16 products
+// instead of 3 + 1 + 1 + 3 serial one-thread products.  hard_exp at the
+// path's ~796 lanes: LB = 2 and 398 blocks; a cyclotomic square's 36 and
+// 24 products are 3 and 2 groups (one warp pass each), an fq12 multiply's
+// 108 are 7 (two passes); LB = 1 and 4 measured slower (PERF.md).  Per
+// chain a lane runs 63 cyclotomic squares, 5 set-bit multiplies and the
+// glue: ~668 serial product rounds per lane, each a barrier-separated
+// pointwise phase and warp pass, with three blocks sharing an SM; that,
+// not its operations, is what bounds hard_exp.
+// blk_mul12 and blk_cyclo take the pass as a type (WarpPass or CorePass),
+// so tower_op, which keeps the first design, compiles as before.
 //
-// tower_op and hard_exp keep the first design: thread k of the block runs
-// the whole per-thread body `mul_core` for product k/nl of lane k%nl, on
-// rows in the scratch read with stride 1 (`mul_pass`).
+// tower_op keeps the first design: thread k of the block runs the whole
+// per-thread body `mul_core` for product k/nl of lane k%nl, on rows in the
+// scratch read with stride 1 (`mul_pass`).
 //
 // Layout of the operands: the port's (C, n, 79) stacked coefficient rows in
 // the canonical leaf order (fq12: coefficient 6s + 2t + c for fq6-half s,
@@ -357,15 +366,27 @@ __device__ __noinline__ void mul_pass_warp(const Blk& b, int np) {
   __syncthreads();
 }
 
+// The product pass of a shared round helper: the per-thread body
+// (tower_op) or the warp body (hard_exp).
+struct CorePass {
+  __device__ __forceinline__ void operator()(const Blk& b, int np) const { mul_pass(b, np); }
+};
+struct WarpPass {
+  __device__ __forceinline__ void operator()(const Blk& b, int np) const {
+    mul_pass_warp(b, np);
+  }
+};
+
 #define FOR_K(b) for (int k = threadIdx.x; k < (b).nl * NL; k += blockDim.x)
 
 // out = x * y (fq12).  out may be x or y.
+template <class Pass>
 __device__ __noinline__ void blk_mul12(const Blk& b, El x, El y, El out) {
   FOR_K(b) {
     Pairs pr = b.pairs(k);
     pr.mul12(x.f12(k), y.f12(k));
   }
-  mul_pass(b, 54);
+  Pass()(b, 54);
   FOR_K(b) {
     Prods q = b.prods(k);
     out.put12(k, q.mul12());
@@ -376,12 +397,13 @@ __device__ __noinline__ void blk_mul12(const Blk& b, El x, El y, El out) {
 // out = cyclotomic square of x: 18 squaring lanes, the Granger-Scott
 // recombination, then the 12-lane renormalization (a product by ONE).
 // out may be x.
+template <class Pass>
 __device__ __noinline__ void blk_cyclo(const Blk& b, El x, El out) {
   FOR_K(b) {
     Pairs pr = b.pairs(k);
     pr.cyclo(x.f12(k));
   }
-  mul_pass(b, 18);
+  Pass()(b, 18);
   FOR_K(b) {
     Prods q = b.prods(k);
     F2 sq[9];
@@ -407,7 +429,7 @@ __device__ __noinline__ void blk_cyclo(const Blk& b, El x, El out) {
       pr.fq(s[i].c1, one);
     }
   }
-  mul_pass(b, 12);
+  Pass()(b, 12);
   FOR_K(b) {
     Prods q = b.prods(k);
     for (int c = 0; c < 12; ++c) out.at(c, k) = q.fq();
@@ -445,11 +467,11 @@ tower_op_kernel(int kind, const float* a, const float* bb, float* out, int n, in
   const El o{out + lane0 * NL, cs};
 
   if (kind == 6) {  // fq12_cyclo_sqr
-    blk_cyclo(b, x, o);
+    blk_cyclo<CorePass>(b, x, o);
     return;
   }
   if (kind == 4) {  // fq12_mul
-    blk_mul12(b, x, y, o);
+    blk_mul12<CorePass>(b, x, y, o);
     return;
   }
   int np = 0;
@@ -493,7 +515,7 @@ tower_op_kernel(int kind, const float* a, const float* bb, float* out, int n, in
 // Kernel 2: one Miller doubling, f <- f^2 * l_R(P), R <- 2R
 // ---------------------------------------------------------------------------
 
-#define DBL_SMEM (TC_SMEM_BYTES + (TPB / 32) * WARP_TILE * 4)
+#define WARP_SMEM (TC_SMEM_BYTES + (TPB / 32) * WARP_TILE * 4)  // miller_dbl, hard_exp
 
 __global__ void __launch_bounds__(TPB, 4)
 miller_dbl_kernel(const float* f_in, const float* r_in, const float* p_in, float* f_out,
@@ -612,71 +634,55 @@ __device__ __forceinline__ void copy12(const Blk& b, El from, El to) {
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(TPB)
-hard_exp_kernel(const int* __restrict__ bits, int nbits, const float* m_in, float* out,
-                int n, int lb, float* scratch, const float* __restrict__ kc,
-                const float* tc) {
-  __shared__ __align__(16) float K[N_CONSTS];  // float2 views of E1/E2
-  Blk b;
-  long lane0;
-  block_setup(K, kc, scratch, n, lb, HARD_SLOTS, b, lane0);
-  b.tc = tc;
-  const long cs = (long)n * NL;
-  const El M{const_cast<float*>(m_in) + lane0 * NL, cs};
-  const El o{out + lane0 * NL, cs};
-  const El T = b.slot(0);
-  const El ACC = T.at_slot(H_ACC), BASE = T.at_slot(H_BASE), Bv = T.at_slot(H_B);
-  const El Y3 = T.at_slot(H_Y3), Y2 = T.at_slot(H_Y2), Y1 = T.at_slot(H_Y1);
+// The rounds of the hard part other than the x-chains' own, each a
+// function of the block that finds the register-file slots it touches
+// from b: the kernel body then keeps few values live across its calls
+// (ptxas holds those in callee-saved registers, and spills the rest).
 
-  copy12(b, M, ACC);
-  copy12(b, M, BASE);
-  // Five x-power chains.  At each chain boundary: the chain's value,
-  // conjugated (BLS x is negative), times conj(m) after chain 0 (-> b),
-  // conj(b) after chain 1 (-> y3), ONE after chain 2 (-> y2), conj(y3)
-  // after chain 3 (-> y1), ONE after chain 4 (-> y0').
-  for (int chain = 0; chain < 5; ++chain) {
-    for (int i = 0; i < nbits; ++i) {
-      blk_cyclo(b, ACC, ACC);
-      if (bits[i]) blk_mul12(b, ACC, BASE, ACC);
+// The glue round at the end of x-chain `chain`: the chain's value,
+// conjugated (BLS x is negative), times conj(m) after chain 0 (-> b),
+// conj(b) after chain 1 (-> y3), ONE after chain 2 (-> y2), conj(y3)
+// after chain 3 (-> y1), ONE after chain 4 (-> y0'); the result is also
+// the next chain's accumulator and base.
+__device__ __noinline__ void hard_glue(const Blk& b, El M, int chain) {
+  const El ACC = b.slot(H_ACC), BASE = b.slot(H_BASE);
+  const El glue = chain == 0 ? M : b.slot(chain == 1 ? H_B : H_Y3);
+  const bool by_one = chain == 2 || chain == 4;
+  FOR_K(b) {
+    const F12 ca = conj12(ACC.f12(k));
+    F12 op;
+    if (by_one) {
+      const F2 z = {0.f, 0.f};
+      for (int s = 0; s < 2; ++s)
+        for (int t = 0; t < 3; ++t) op.c[s].c[t] = z;
+      op.c[0].c[0].c0 = b.tc[k % NL];
+    } else {
+      op = conj12(glue.f12(k));
     }
-    const El glue = chain == 0 ? M : chain == 1 ? Bv : Y3;
-    const bool by_one = chain == 2 || chain == 4;
-    FOR_K(b) {
-      const F12 ca = conj12(ACC.f12(k));
-      F12 op;
-      if (by_one) {
-        const F2 z = {0.f, 0.f};
-        for (int s = 0; s < 2; ++s)
-          for (int t = 0; t < 3; ++t) op.c[s].c[t] = z;
-        op.c[0].c[0].c0 = b.tc[k % NL];
-      } else {
-        op = conj12(glue.f12(k));
-      }
-      Pairs pr = b.pairs(k);
-      pr.mul12(ca, op);
-    }
-    mul_pass(b, 54);
-    const El dst = chain == 0 ? Bv : chain == 1 ? Y3 : chain == 2 ? Y2 : chain == 3 ? Y1 : ACC;
-    FOR_K(b) {
-      Prods q = b.prods(k);
-      const F12 val = q.mul12();
-      ACC.put12(k, val);
-      BASE.put12(k, val);
-      if (chain < 4) dst.put12(k, val);
-    }
-    __syncthreads();
+    Pairs pr = b.pairs(k);
+    pr.mul12(ca, op);
   }
-  // ACC = y0'.  m^3 = cyclo(m) * m -> BASE;  y0 = y0' * m^3 -> ACC.
-  blk_cyclo(b, M, BASE);
-  blk_mul12(b, BASE, M, BASE);
-  blk_mul12(b, ACC, BASE, ACC);
-  // frob(y1), frob^2(y2), frob^3(y3) in one 54-product round:
-  // frob^n(a)_ji = conj^n(a_ji) * K^(n)_ji.
+  mul_pass_warp(b, 54);
+  const El dst = b.slot(chain == 0 ? H_B : chain == 1 ? H_Y3 : chain == 2 ? H_Y2 : H_Y1);
+  FOR_K(b) {
+    Prods q = b.prods(k);
+    const F12 val = q.mul12();
+    ACC.put12(k, val);
+    BASE.put12(k, val);
+    if (chain < 4) dst.put12(k, val);
+  }
+  __syncthreads();
+}
+
+// frob(y1), frob^2(y2), frob^3(y3) in one 54-product round:
+// frob^n(a)_ji = conj^n(a_ji) * K^(n)_ji.
+__device__ __noinline__ void hard_frob(const Blk& b) {
+  const El Y[3] = {b.slot(H_Y1), b.slot(H_Y2), b.slot(H_Y3)};
   FOR_K(b) {
     const int r = k % NL;
     Pairs pr = b.pairs(k);
     for (int nn = 1; nn <= 3; ++nn) {
-      const F12 a = (nn == 1 ? Y1 : nn == 2 ? Y2 : Y3).f12(k);
+      const F12 a = Y[nn - 1].f12(k);
       const int off = 1 + 12 * (nn - 1);
       for (int j = 0; j < 2; ++j)
         for (int i = 0; i < 3; ++i) {
@@ -687,22 +693,56 @@ hard_exp_kernel(const int* __restrict__ bits, int nbits, const float* m_in, floa
         }
     }
   }
-  mul_pass(b, 54);
+  mul_pass_warp(b, 54);
   FOR_K(b) {
     Prods q = b.prods(k);
-    const El dst[3] = {Y1, Y2, Y3};
     for (int nn = 0; nn < 3; ++nn) {
       F12 v;
       for (int s = 0; s < 2; ++s)
         for (int t = 0; t < 3; ++t) v.c[s].c[t] = q.mul2();
-      dst[nn].put12(k, v);
+      Y[nn].put12(k, v);
     }
   }
   __syncthreads();
+}
+
+__global__ void __launch_bounds__(TPB, 4)
+hard_exp_kernel(const int* __restrict__ bits, int nbits, const float* m_in, float* out,
+                int n, int lb, float* scratch, const float* __restrict__ kc,
+                const int* __restrict__ kt, const float* tc) {
+  extern __shared__ __align__(16) float smem[];  // mul_warp constants, then the tiles
+  Blk b;
+  const long lane0 = (long)blockIdx.x * lb;
+  load_tc_consts(smem, kc, kt);
+  b.ss = (long)lb * NL;
+  b.S = scratch + (long)blockIdx.x * HARD_SLOTS * b.ss;
+  b.nl = (int)min((long)lb, (long)n - lane0);
+  b.K = smem;
+  b.tc = tc;
+  b.T = smem + NV + TC_WORDS + (threadIdx.x >> 5) * WARP_TILE;
+  __syncthreads();
+  const long cs = (long)n * NL;
+  const El M{const_cast<float*>(m_in) + lane0 * NL, cs};
+
+  copy12(b, M, b.slot(H_ACC));
+  copy12(b, M, b.slot(H_BASE));
+  // Five x-power chains, each ending in its glue round.
+  for (int chain = 0; chain < 5; ++chain) {
+    for (int i = 0; i < nbits; ++i) {
+      blk_cyclo<WarpPass>(b, b.slot(H_ACC), b.slot(H_ACC));
+      if (bits[i]) blk_mul12<WarpPass>(b, b.slot(H_ACC), b.slot(H_BASE), b.slot(H_ACC));
+    }
+    hard_glue(b, M, chain);
+  }
+  // ACC = y0'.  m^3 = cyclo(m) * m -> BASE;  y0 = y0' * m^3 -> ACC.
+  blk_cyclo<WarpPass>(b, M, b.slot(H_BASE));
+  blk_mul12<WarpPass>(b, b.slot(H_BASE), M, b.slot(H_BASE));
+  blk_mul12<WarpPass>(b, b.slot(H_ACC), b.slot(H_BASE), b.slot(H_ACC));
+  hard_frob(b);
   // ((y0 F1) F2) F3 regrouped as (y0 F1) (F2 F3), as the reference does.
-  blk_mul12(b, ACC, Y1, ACC);
-  blk_mul12(b, Y2, Y3, Y2);
-  blk_mul12(b, ACC, Y2, o);
+  blk_mul12<WarpPass>(b, b.slot(H_ACC), b.slot(H_Y1), b.slot(H_ACC));
+  blk_mul12<WarpPass>(b, b.slot(H_Y2), b.slot(H_Y3), b.slot(H_Y2));
+  blk_mul12<WarpPass>(b, b.slot(H_ACC), b.slot(H_Y2), El{out + lane0 * NL, cs});
 }
 
 // ---------------------------------------------------------------------------
@@ -726,16 +766,27 @@ int tower_op(int kind, const float* a, const float* b, float* out, int n, int lb
   return (int)cudaGetLastError();
 }
 
-// miller_dbl's launch set-up, once per process and device (launch_setup).
-static LaunchSetup g_dbl[MAX_DEVICES];
+// Launch set-up of the warp-body kernels, once per process and device
+// (launch_setup).
+static LaunchSetup g_dbl[MAX_DEVICES], g_hard[MAX_DEVICES];
 
 static const LaunchSetup& dbl_setup() {
-  return launch_setup(g_dbl, miller_dbl_kernel, TPB, DBL_SMEM);
+  return launch_setup(g_dbl, miller_dbl_kernel, TPB, WARP_SMEM);
 }
 
-// Blocks of miller_dbl_kernel resident on one SM, or a negative CUDA error.
+static const LaunchSetup& hard_setup() {
+  return launch_setup(g_hard, hard_exp_kernel, TPB, WARP_SMEM);
+}
+
+// Blocks of miller_dbl_kernel (hard_exp_kernel) resident on one SM, or a
+// negative CUDA error.
 int tower_fused_dbl_blocks_per_sm(void) {
   const LaunchSetup& s = dbl_setup();
+  return s.rc ? -s.rc : s.per_sm;
+}
+
+int tower_fused_hard_blocks_per_sm(void) {
+  const LaunchSetup& s = hard_setup();
   return s.rc ? -s.rc : s.per_sm;
 }
 
@@ -746,17 +797,19 @@ int miller_dbl(const float* f, const float* r, const float* p, float* f_out,
   const int rc = dbl_setup().rc;
   if (rc) return rc;
   unsigned grid = (unsigned)((n + lb - 1) / lb);
-  miller_dbl_kernel<<<grid, TPB, DBL_SMEM, (cudaStream_t)stream>>>(f, r, p, f_out, r_out, n,
-                                                                    lb, scratch, kc, kt);
+  miller_dbl_kernel<<<grid, TPB, WARP_SMEM, (cudaStream_t)stream>>>(f, r, p, f_out, r_out, n,
+                                                                     lb, scratch, kc, kt);
   return (int)cudaGetLastError();
 }
 
 int hard_exp(const int* bits, int nbits, const float* m, float* out, int n, int lb,
-             float* scratch, const float* kc, const float* tc, void* stream) {
+             float* scratch, const float* kc, const int* kt, const float* tc, void* stream) {
   if (n <= 0) return 0;
+  const int rc = hard_setup().rc;
+  if (rc) return rc;
   unsigned grid = (unsigned)((n + lb - 1) / lb);
-  hard_exp_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(bits, nbits, m, out, n, lb,
-                                                           scratch, kc, tc);
+  hard_exp_kernel<<<grid, TPB, WARP_SMEM, (cudaStream_t)stream>>>(bits, nbits, m, out, n, lb,
+                                                                   scratch, kc, kt, tc);
   return (int)cudaGetLastError();
 }
 

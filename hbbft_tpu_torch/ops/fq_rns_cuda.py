@@ -11,7 +11,8 @@ says what bounds them and why they are laid out as they are):
   planes ``_pack_tc_planes`` packs;
 * ``fq_rns_pow``  replaces ``_pow_kernel`` — the whole square-and-multiply
   chain over a fixed exponent in one launch (its reason to exist is the
-  380-bit Fermat inverse Q−2);
+  380-bit Fermat inverse Q−2), each warp chaining the products of one
+  group of 16 lanes on the same tensor-core body;
 * ``fq_rns_chain`` replaces ``_chain_kernel`` — n chained products
   x ← x·b in one launch (the kernel bench's ceiling probe: both operands
   renormalized once, then ``reduced`` products).
@@ -24,10 +25,10 @@ run the plain version on CPU tensors and launch the kernel on CUDA
 tensors; there is no fallback from one to the other.  Each wrapper
 counts its launches in ``.launches``.
 
-Layout: the public ``(..., 79)`` float32 rows.  ``fq_rns_mul`` reads
-them row by row (its warps stage and reduce in place), the power and
-chain kernels transpose their tile in shared memory, so there is no
-separate layout pass.  A one-row operand of ``mul`` is read in place with
+Layout: the public ``(..., 79)`` float32 rows.  ``fq_rns_mul`` and
+``fq_rns_pow`` read them row by row (their warps stage and reduce in
+place), the chain kernel transposes its tile in shared memory, so there
+is no separate layout pass.  A one-row operand of ``mul`` is read in place with
 lane stride 0 (counted in ``mul.broadcast_launches``); other broadcasts
 are expanded first.
 """
@@ -224,13 +225,14 @@ def _lib() -> ctypes.CDLL:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.fq_rns_mul.argtypes = [ptr, i, ptr, i, ptr, i, i, ptr, ptr, ptr]
         lib.fq_rns_mul.restype = i
-        lib.fq_rns_pow.argtypes = [ptr, ptr, i, ptr, i, ptr, ptr]
+        lib.fq_rns_pow.argtypes = [ptr, ptr, i, ptr, ptr, i, i, ptr, ptr, ptr]
         lib.fq_rns_pow.restype = i
         lib.fq_rns_chain.argtypes = [ptr, ptr, ptr, i, i, ptr, ptr]
         lib.fq_rns_chain.restype = i
         lib.fq_rns_const_floats.restype = i
         lib.fq_rns_tc_bytes.restype = i
         lib.fq_rns_mul_blocks_per_sm.restype = i
+        lib.fq_rns_pow_blocks_per_sm.restype = i
         lib.fq_rns_error_string.argtypes = [i]
         lib.fq_rns_error_string.restype = ctypes.c_char_p
         if lib.fq_rns_const_floats() != _KCONSTS.size:
@@ -305,20 +307,57 @@ def mul(a: torch.Tensor, b: torch.Tensor, reduced: bool = False) -> torch.Tensor
     return out
 
 
+def _blocks_per_sm(device, query, what: str) -> int:
+    with torch.cuda.device(device):
+        got = query()
+    if got <= 0:
+        raise RuntimeError(f"{what} occupancy query failed ({-got})")
+    return got
+
+
 def mul_blocks_per_sm(device) -> int:
     """Blocks of ``fq_rns_mul`` resident on one SM of the card (the
     occupancy query of the CUDA runtime for its launch configuration)."""
-    with torch.cuda.device(device):
-        got = _lib().fq_rns_mul_blocks_per_sm()
-    if got <= 0:
-        raise RuntimeError(f"fq_rns_mul occupancy query failed ({-got})")
-    return got
+    return _blocks_per_sm(device, _lib().fq_rns_mul_blocks_per_sm, "fq_rns_mul")
+
+
+def pow_blocks_per_sm(device) -> int:
+    """Blocks of ``fq_rns_pow`` (at its widest, four warps) resident on one
+    SM of the card."""
+    return _blocks_per_sm(device, _lib().fq_rns_pow_blocks_per_sm, "fq_rns_pow")
+
+
+def fit_per_block(n: int, resident: int, most: int) -> int:
+    """The sizing policy of the warp-body kernels: the smallest power of
+    two k, at most ``most``, for which the grid of ceil(n / k) blocks
+    (each taking k of the n items: lanes, or lane groups) fits the
+    ``resident`` blocks the card holds at once."""
+    k = 1
+    while k < most and -(-n // k) > resident:
+        k *= 2
+    return k
 
 
 mul.launches = 0
 mul.broadcast_launches = 0  # launches with a one-row operand read at lane stride 0
 mul.lanes = 0  # lanes over all launches (lanes / launches = mean launch width)
 mul.widths = Counter()  # launches by width class: key b holds widths in [2^(b-1), 2^b)
+
+
+#: most warps (lane groups of 16) per block of fq_rns_pow
+POW_MAX_WARPS = 4
+WARP_M = 16  # lanes of one warp pass (csrc/fq_rns_core.cuh)
+
+
+def pow_warps_per_block(n: int, sms: int) -> int:
+    """fq_rns_pow's warps per block for n lanes: one warp per group of 16
+    lanes, the fewest per block (1, 2 or 4) whose grid fits on the SMs at
+    once, so a chain's warps spread over the card's SMs."""
+    return fit_per_block(-(-n // WARP_M), sms, POW_MAX_WARPS)
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def pow_fixed(x: torch.Tensor, exponent: int) -> torch.Tensor:
@@ -336,7 +375,9 @@ def pow_fixed(x: torch.Tensor, exponent: int) -> torch.Tensor:
     if n == 0:
         return out
     lib = _lib()
-    kc = _consts(x.device)["kernel"]
+    c = _consts(x.device)
+    base = torch.empty_like(x)  # the renormalized base, written by the kernel
+    warps = pow_warps_per_block(n, _sms(x.device))
     key = (exponent, x.device)
     bits_t = _BITS.get(key)
     if bits_t is None:
@@ -344,19 +385,21 @@ def pow_fixed(x: torch.Tensor, exponent: int) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.fq_rns_pow(
-            x.data_ptr(), bits_t.data_ptr(), len(bits), out.data_ptr(), n,
-            kc.data_ptr(), stream,
+            x.data_ptr(), bits_t.data_ptr(), len(bits), out.data_ptr(), base.data_ptr(), n,
+            warps, c["kernel"].data_ptr(), c["planes"].data_ptr(), stream,
         )
     _check(lib, rc, "fq_rns_pow")
     pow_fixed.launches += 1
     pow_fixed.lanes += n
     pow_fixed.widths[n.bit_length()] += 1
+    pow_fixed.widest = max(pow_fixed.widest, n)
     return out
 
 
 pow_fixed.launches = 0
 pow_fixed.lanes = 0
 pow_fixed.widths = Counter()
+pow_fixed.widest = 0  # the widest launch's lanes
 _BITS: dict = {}  # (exponent, device) → int32 bit schedule on the device
 
 
@@ -403,6 +446,7 @@ def reset_launches() -> None:
         fn.lanes = 0
         fn.widths.clear()
     mul.broadcast_launches = 0
+    pow_fixed.widest = 0
 
 
 def build() -> Dict[str, float]:

@@ -7,7 +7,7 @@ Three kernels (the design note in the source says what bounds them):
 * ``miller_dbl`` replaces ``_dbl_kernel`` — one Miller doubling, its
   products on the warp-wide tensor-core body;
 * ``hard_exp``   replaces ``_hard_kernel`` — the whole final-exponentiation
-  hard part.
+  hard part, its products on the same body.
 
 Their plain PyTorch versions are ``op_plain``, ``dbl_plain`` and
 ``hard_plain`` in ``ops/tower_fused.py``, whose public wrappers call these
@@ -23,7 +23,7 @@ coefficient count.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -34,10 +34,10 @@ from hbbft_tpu_torch.utils import cuda_build
 NL = TF.NL
 _SRC = "tower_fused"
 
-#: most lanes per block of the tower kernels.  tower_op and hard_exp take
-#: one at narrow widths (parallelism across blocks), up to MAX_LB when a
-#: launch already fills the card's 132 SMs twice over; miller_dbl a power
-#: of two up to MAX_LB (see dbl_lanes_per_block)
+#: most lanes per block of the tower kernels.  tower_op takes one at
+#: narrow widths (parallelism across blocks), up to MAX_LB when a launch
+#: already fills the card's 132 SMs twice over; miller_dbl and hard_exp a
+#: power of two up to MAX_LB (see lanes_per_block)
 MAX_LB = 8
 _SMS = 132
 
@@ -51,12 +51,13 @@ def _lib() -> ctypes.CDLL:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.tower_op.argtypes = [i, ptr, ptr, ptr, i, i, ptr, ptr, ptr, ptr]
         lib.miller_dbl.argtypes = [ptr, ptr, ptr, ptr, ptr, i, i, ptr, ptr, ptr, ptr]
-        lib.hard_exp.argtypes = [ptr, i, ptr, ptr, i, i, ptr, ptr, ptr, ptr]
+        lib.hard_exp.argtypes = [ptr, i, ptr, ptr, i, i, ptr, ptr, ptr, ptr, ptr]
         for fn in (lib.tower_op, lib.miller_dbl, lib.hard_exp):
             fn.restype = i
         for name in ("tower_fused_const_floats", "tower_fused_op_slots",
                      "tower_fused_dbl_slots", "tower_fused_hard_slots",
-                     "tower_fused_tc_bytes", "tower_fused_dbl_blocks_per_sm"):
+                     "tower_fused_tc_bytes", "tower_fused_dbl_blocks_per_sm",
+                     "tower_fused_hard_blocks_per_sm"):
             getattr(lib, name).restype = i
         lib.tower_fused_error_string.argtypes = [i]
         lib.tower_fused_error_string.restype = ctypes.c_char_p
@@ -78,30 +79,32 @@ def _lanes_per_block(n: int) -> int:
     return max(1, min(MAX_LB, n // (2 * _SMS)))
 
 
-def dbl_lanes_per_block(n: int, resident: int) -> int:
-    """miller_dbl's lanes per block for n lanes on a card that holds
-    ``resident`` of its blocks at once (blocks per SM x SMs): the smallest
-    power of two, at most MAX_LB, whose grid fits at once."""
-    lb = 1
-    while lb < MAX_LB and -(-n // lb) > resident:
-        lb *= 2
-    return lb
+def lanes_per_block(n: int, resident: int) -> int:
+    """miller_dbl's and hard_exp's lanes per block for n lanes on a card
+    that holds ``resident`` of the kernel's blocks at once (blocks per SM
+    x SMs): the smallest power of two, at most MAX_LB, whose grid fits at
+    once."""
+    return fq_rns_cuda.fit_per_block(n, resident, MAX_LB)
 
 
-_RESIDENT: Dict[torch.device, int] = {}
+#: the warp-body kernels and their occupancy queries
+_BLOCKS_PER_SM = {"miller_dbl": "tower_fused_dbl_blocks_per_sm",
+                  "hard_exp": "tower_fused_hard_blocks_per_sm"}
+_RESIDENT: Dict[tuple, int] = {}
 
 
-def dbl_resident_blocks(device) -> int:
-    """Blocks of miller_dbl the card holds at once: the occupancy query's
-    blocks per SM times the SM count (cached per device)."""
+def resident_blocks(device, kernel: str) -> int:
+    """Blocks of ``kernel`` (miller_dbl or hard_exp) the card holds at
+    once: the occupancy query's blocks per SM times the SM count (cached
+    per device)."""
     device = torch.device(device)
-    got = _RESIDENT.get(device)
+    got = _RESIDENT.get((device, kernel))
     if got is None:
         with torch.cuda.device(device):
-            per_sm = _lib().tower_fused_dbl_blocks_per_sm()
+            per_sm = getattr(_lib(), _BLOCKS_PER_SM[kernel])()
         if per_sm <= 0:
-            raise RuntimeError(f"miller_dbl occupancy query failed ({-per_sm})")
-        got = _RESIDENT[device] = per_sm * torch.cuda.get_device_properties(
+            raise RuntimeError(f"{kernel} occupancy query failed ({-per_sm})")
+        got = _RESIDENT[device, kernel] = per_sm * torch.cuda.get_device_properties(
             device).multi_processor_count
     return got
 
@@ -167,7 +170,7 @@ def miller_dbl(f: torch.Tensor, r: torch.Tensor, p: torch.Tensor):
     if n == 0:
         return f_out, r_out
     lib = _lib()
-    lb = dbl_lanes_per_block(n, dbl_resident_blocks(f.device))
+    lb = lanes_per_block(n, resident_blocks(f.device, "miller_dbl"))
     scratch = _scratch(lib.tower_fused_dbl_slots(), n, lb, f.device)
     c = fq_rns_cuda._consts(f.device)
     with torch.cuda.device(f.device):
@@ -183,17 +186,22 @@ def miller_dbl(f: torch.Tensor, r: torch.Tensor, p: torch.Tensor):
 _BITS: Dict[torch.device, torch.Tensor] = {}
 
 
-def hard_exp(m: torch.Tensor) -> torch.Tensor:
-    """The final-exponentiation hard part of a packed m (12, n, 79)."""
+def hard_exp(m: torch.Tensor, lb: Optional[int] = None) -> torch.Tensor:
+    """The final-exponentiation hard part of a packed m (12, n, 79).
+    ``lb``: lanes per block (default: ``lanes_per_block``'s choice; the
+    kernel bench sweeps it)."""
     n = m.shape[1]
     _check(m, 12, n, "hard_exp m")
     out = torch.empty_like(m)
     if n == 0:
         return out
     lib = _lib()
-    lb = _lanes_per_block(n)
+    if lb is None:
+        lb = lanes_per_block(n, resident_blocks(m.device, "hard_exp"))
+    elif not 1 <= lb <= MAX_LB:
+        raise ValueError(f"hard_exp: lanes per block {lb} outside 1..{MAX_LB}")
     scratch = _scratch(lib.tower_fused_hard_slots(), n, lb, m.device)
-    kc = fq_rns_cuda._consts(m.device)["kernel"]
+    c = fq_rns_cuda._consts(m.device)
     tc = TF.tower_consts(m.device)
     bits = _BITS.get(m.device)
     if bits is None:
@@ -203,7 +211,8 @@ def hard_exp(m: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream(m.device).cuda_stream
         rc = lib.hard_exp(bits.data_ptr(), bits.numel(), m.data_ptr(), out.data_ptr(), n,
-                          lb, scratch.data_ptr(), kc.data_ptr(), tc.data_ptr(), stream)
+                          lb, scratch.data_ptr(), c["kernel"].data_ptr(),
+                          c["planes"].data_ptr(), tc.data_ptr(), stream)
     _launch(lib, rc, "hard_exp")
     _count(hard_exp, n)
     return out

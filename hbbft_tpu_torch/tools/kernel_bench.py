@@ -5,6 +5,8 @@ port's counterpart of the JAX package's ``tools/kernel_bench.py``.
     python -m hbbft_tpu_torch.tools.kernel_bench --device cpu --lanes 8 \\
         --chain 2 --probe-shape 4x8 --probe-iters 10        # plain versions
     python -m hbbft_tpu_torch.tools.kernel_bench --launch    # per-launch times
+    python -m hbbft_tpu_torch.tools.kernel_bench --launch \\
+        --launch-lanes hard_exp=796 --hard-lb 1,2,4           # hard_exp's LB sweep
 
 At each width (lanes; default 4k/16k/64k/256k) it times
 
@@ -15,14 +17,19 @@ At each width (lanes; default 4k/16k/64k/256k) it times
 
 and reports ms per launch (per product for the chain) and M muls/s.
 
-With ``--launch`` it times instead one launch of ``fq_rns_mul`` and of
-``miller_dbl`` at the epoch path's mean widths (``--launch-lanes``), each
-two ways: one call between two CUDA events, as ``chip_smoke.time_ms``
-does (so it also counts the host's launch latency), and per call of
-``STREAM`` back-to-back calls between two events (the card never waits on
-the host).  Only public wrappers that every version of the port has are
-called, so this file can time another checkout's package: run it as a
-script with that checkout's root on ``PYTHONPATH``.  Both
+With ``--launch`` it times instead one launch of each kernel of the
+epoch path — ``fq_rns_mul``, ``miller_dbl``, ``tower_op`` (its
+``fq12_mul``) and ``hard_exp`` at the path's mean widths, ``fq_rns_pow``
+at its narrowest and widest launches (``--launch-lanes`` picks kernels
+and widths) — each two ways: one call between two CUDA events, as
+``chip_smoke.time_ms`` does (so it also counts the host's launch
+latency), and per call of ``STREAM`` back-to-back calls between two
+events (the card never waits on the host).  Only public wrappers that
+every version of the port has are called, so this file can time another
+checkout's package: run it as a script with that checkout's root on
+``PYTHONPATH``.  ``--hard-lb`` adds ``hard_exp`` at the given lanes per
+block (this checkout's wrapper only), each checked equal to the default
+sizing's result.  Both
 field arms run in this one process: their kernels are called directly,
 not through the ``HBBFT_TPU_FQ_IMPL`` facade.  Then the FMA probe
 (``fma_probe``) at a tile that fills the card's 132 SMs several times
@@ -48,6 +55,7 @@ import time
 import numpy as np
 import torch
 
+from hbbft_tpu_torch.crypto.field import Q
 from hbbft_tpu_torch.ops import fq_limb_cuda, fq_rns_cuda, probe_cuda
 from hbbft_tpu_torch.ops import tower_fused, tower_fused_cuda
 from hbbft_tpu_torch.utils.device import resolve
@@ -58,8 +66,11 @@ CHAIN = 200
 PROBE_SHAPE = (2112, 1024)
 PROBE_ITERS = probe_cuda.REF_ITERS
 FP32_PEAK_TFLOPS = 67.0  # H100 SXM, float32 outside the tensor cores, 700 W
-#: mean launch widths of fq_rns_mul and miller_dbl on two N=100 epochs
-LAUNCH_LANES = (191251, 1593)
+#: per-launch widths: the mean launch widths of two N=100 epochs, and
+#: fq_rns_pow's narrowest and widest launches (no launch has its mean;
+#: 2,048 lanes on two epochs) and the top of the widest class, 4,095
+LAUNCH_LANES = {"fq_rns_mul": (191251,), "miller_dbl": (1593,), "tower_op": (796,),
+                "hard_exp": (796,), "fq_rns_pow": (1, 2048, 4095)}
 #: back-to-back calls per sample of the second per-launch timing
 STREAM = 50
 
@@ -107,24 +118,69 @@ def ms_per_launch(fn, dev: torch.device, reps: int = 7) -> dict:
             "stream": seconds_per_call(_repeat(fn, STREAM), dev, reps) * 1e3 / STREAM}
 
 
-def launch_run(device="cuda", lanes=LAUNCH_LANES, log=print) -> dict:
-    """Per-launch ms of fq_rns_mul (lanes[0]) and miller_dbl (lanes[1])."""
+def _launch_fn(name: str, n: int, rng, dev):
+    """One call of kernel ``name`` at n lanes (its plain version on the
+    CPU), on random operands: the work does not depend on the values."""
+    nl = fq_rns_cuda.NL
+    cuda = dev.type == "cuda"
+    if name == "fq_rns_mul":
+        a, b = _rows(rng, n, nl, dev), _rows(rng, n, nl, dev)
+        return lambda: fq_rns_cuda.mul(a, b)
+    if name == "fq_rns_pow":
+        x = _rows(rng, n, nl, dev)
+        return lambda: fq_rns_cuda.pow_fixed(x, Q - 2)
+    if name == "miller_dbl":
+        f, r, p = (_rows(rng, c * n, nl, dev).reshape(c, n, -1) for c in (12, 6, 2))
+        dbl = tower_fused_cuda.miller_dbl if cuda else tower_fused.dbl_plain
+        return lambda: dbl(f, r, p)
+    a, b = (_rows(rng, 12 * n, nl, dev).reshape(12, n, -1) for _ in range(2))
+    if name == "tower_op":
+        k = tower_fused.OP_KINDS.index("fq12_mul")
+        if cuda:
+            return lambda: tower_fused_cuda.tower_op(k, a, b)
+        return lambda: tower_fused.op_plain("fq12_mul", a, b)
+    if name == "hard_exp":
+        return lambda: (tower_fused_cuda.hard_exp if cuda else tower_fused.hard_plain)(a)
+    raise ValueError(f"unknown kernel {name!r}")
+
+
+def launch_run(device="cuda", lanes=None, hard_lb=(), log=print) -> dict:
+    """Per-launch ms of each kernel at each of its widths (``lanes``: name
+    → widths, default LAUNCH_LANES); ``hard_lb``: hard_exp's lanes per
+    block to time besides the default sizing, at hard_exp's widths."""
     dev = resolve(device)
     card = card_line(dev)
     rng = np.random.default_rng(0)
-    n_mul, n_dbl = lanes
-    a, b = _rows(rng, n_mul, fq_rns_cuda.NL, dev), _rows(rng, n_mul, fq_rns_cuda.NL, dev)
-    f, r, p = (_rows(rng, c * n_dbl, fq_rns_cuda.NL, dev).reshape(c, n_dbl, -1)
-               for c in (12, 6, 2))
-    dbl = tower_fused_cuda.miller_dbl if dev.type == "cuda" else tower_fused.dbl_plain
+    lanes = lanes or LAUNCH_LANES
     rows = []
-    for name, n, fn in (("fq_rns_mul", n_mul, lambda: fq_rns_cuda.mul(a, b)),
-                        ("miller_dbl", n_dbl, lambda: dbl(f, r, p))):
-        ms = ms_per_launch(fn, dev)
-        rows.append({"kernel": name, "lanes": n, **ms})
-        log(f"kernel_bench launch {name} lanes={n}: {ms['single']:.4f} ms one call, "
-            f"{ms['stream']:.4f} ms a call of {STREAM} back to back [{card}]")
+    for name, widths in lanes.items():
+        for n in widths:
+            ms = ms_per_launch(_launch_fn(name, n, rng, dev), dev)
+            rows.append({"kernel": name, "lanes": n, **ms})
+            log(f"kernel_bench launch {name} lanes={n}: {ms['single']:.4f} ms one call, "
+                f"{ms['stream']:.4f} ms a call of {STREAM} back to back [{card}]")
+    if hard_lb and dev.type != "cuda":
+        raise ValueError("--hard-lb sweeps the kernel: it needs the card")
+    for n in lanes.get("hard_exp", ()) if hard_lb else ():
+        m = _rows(rng, 12 * n, fq_rns_cuda.NL, dev).reshape(12, n, -1)
+        want = tower_fused_cuda.hard_exp(m)
+        for lb in hard_lb:
+            if not torch.equal(tower_fused_cuda.hard_exp(m, lb=lb), want):
+                raise AssertionError(f"hard_exp at LB={lb} differs from the default sizing")
+            ms = ms_per_launch(lambda: tower_fused_cuda.hard_exp(m, lb=lb), dev)
+            rows.append({"kernel": "hard_exp", "lanes": n, "lb": lb, **ms})
+            log(f"kernel_bench launch hard_exp lanes={n} LB={lb}: {ms['single']:.4f} ms one "
+                f"call, {ms['stream']:.4f} ms a call of {STREAM} back to back [{card}]")
     return {"device": str(dev), "card": card, "launch": rows}
+
+
+def _launch_lanes(text: str) -> dict:
+    """``name=n[/n...],...`` → {name: (n, ...)}."""
+    out = {}
+    for item in text.split(","):
+        name, _, widths = item.partition("=")
+        out[name.strip()] = tuple(int(v) for v in widths.split("/"))
+    return out
 
 
 def _rows(rng, lanes: int, width: int, dev) -> torch.Tensor:
@@ -199,12 +255,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--probe-shape", type=_shape, default=PROBE_SHAPE, help="ROWSxCOLS")
     ap.add_argument("--probe-iters", type=int, default=PROBE_ITERS)
     ap.add_argument("--launch", action="store_true",
-                    help="time one launch of fq_rns_mul and miller_dbl instead")
-    ap.add_argument("--launch-lanes", default=",".join(map(str, LAUNCH_LANES)),
-                    help="MUL,DBL: their widths under --launch")
+                    help="time one launch of each kernel of the epoch path instead")
+    ap.add_argument("--launch-lanes", type=_launch_lanes, default=None,
+                    help="NAME=N[/N...],...: the kernels and widths under --launch "
+                         "(default: each epoch kernel at its path widths)")
+    ap.add_argument("--hard-lb", default="",
+                    help="L,L,...: under --launch, hard_exp also at these lanes per block")
     args = ap.parse_args(argv)
     if args.launch:
-        res = launch_run(args.device, tuple(int(v) for v in args.launch_lanes.split(",")))
+        res = launch_run(args.device, args.launch_lanes,
+                         tuple(int(v) for v in args.hard_lb.split(",") if v))
         print(json.dumps(res))
         return res
     res = run(args.device, [int(v) for v in args.lanes.split(",")], args.chain,

@@ -90,12 +90,20 @@ def test_mul_kernel_equals_plain(dev, n, reduced, bcast):
     assert R.to_ints(got) == [x * y % Q for x, y in zip(va, vb)]
 
 
+#: fq_rns_pow's checked widths: one lane, around one warp's group of 16,
+#: a few groups, and the epoch path's widest launch (~4k lanes, PERF.md)
+POW_WIDTHS = (1, 15, 16, 17, 100, 4095)
+
+
+@pytest.mark.parametrize("n", POW_WIDTHS)
 @pytest.mark.parametrize("exponent", [1, 2, 0b1011010111, Q - 2])
-def test_pow_kernel_equals_plain(dev, exponent):
-    rows, vals = _lazy(random.Random(10), 100)
+def test_pow_kernel_equals_plain(dev, exponent, n):
+    rows, vals = _lazy_n(random.Random(10 + n), n)
     x = torch.as_tensor(rows, device=dev)
+    n0 = K.pow_fixed.launches
     got = K.pow_fixed(x, exponent)
     torch.cuda.synchronize()
+    assert K.pow_fixed.launches == n0 + 1
     assert torch.equal(got, K.pow_plain(x, exponent))
     assert R.to_ints(got) == [pow(v, exponent, Q) for v in vals]
 
@@ -169,8 +177,9 @@ def test_miller_dbl_kernel_equals_plain(dev, width):
     kind, val = width.split("=")
     n = int(val)
     if kind == "lb":
-        n = max(1, TK.dbl_resident_blocks(dev) * n - (n > 1))
-        assert TK.dbl_lanes_per_block(n, TK.dbl_resident_blocks(dev)) == int(val)
+        resident = TK.resident_blocks(dev, "miller_dbl")
+        n = max(1, resident * n - (n > 1))
+        assert TK.lanes_per_block(n, resident) == int(val)
     rng = random.Random(14 + n)
     f, r, p = (_packed(dev, rng, c, n) for c in (12, 6, 2))
     n0 = TK.miller_dbl.launches
@@ -181,11 +190,33 @@ def test_miller_dbl_kernel_equals_plain(dev, width):
     assert torch.equal(got_f, want_f) and torch.equal(got_r, want_r)
 
 
-def test_hard_exp_kernel_equals_plain(dev):
-    rng = random.Random(15)
-    for n in (1, 37):
-        m = _packed(dev, rng, 12, n)
-        assert torch.equal(TK.hard_exp(m), TF.hard_plain(m))
+#: hard_exp's checked widths besides where its lanes per block step: one
+#: to three lanes, a ragged 37, and the epoch path's mean launch width
+#: (796 lanes, PERF.md)
+HARD_WIDTHS = (1, 2, 3, 37, 796)
+#: widths in hard_exp's resident blocks R, and the lanes per block each
+#: gets: the widest launch at LB 1, the narrowest and widest at LB 2, the
+#: narrowest at LB 4
+HARD_STEPS = {"R": 1, "R+1": 2, "2R": 2, "2R+1": 4}
+
+
+@pytest.mark.parametrize("width", [*(f"n={n}" for n in HARD_WIDTHS), *HARD_STEPS])
+def test_hard_exp_kernel_equals_plain(dev, width):
+    """Bit-equal to the plain version at the listed widths and where the
+    lanes-per-block policy steps up (R: hard_exp's resident blocks)."""
+    resident = TK.resident_blocks(dev, "hard_exp")
+    if width.startswith("n="):
+        n = int(width[2:])
+    else:
+        times, _, plus = width.partition("R")
+        n = int(times or 1) * resident + int(plus or 0)
+        assert TK.lanes_per_block(n, resident) == HARD_STEPS[width]
+    m = _packed(dev, random.Random(15 + n), 12, n)
+    n0 = TK.hard_exp.launches
+    got = TK.hard_exp(m)
+    torch.cuda.synchronize()
+    assert TK.hard_exp.launches == n0 + 1
+    assert torch.equal(got, TF.hard_plain(m))
 
 
 def test_fused_chain_on_the_card_equals_the_stacked_arm(dev, monkeypatch):

@@ -238,7 +238,8 @@ def test_kernel_bench_on_the_cpu(capsys):
 def test_kernel_bench_launch_times_on_the_cpu(capsys):
     """``--launch``: one row per kernel with both timings, every line
     naming the device."""
-    res = kernel_bench.main(["--device", "cpu", "--launch", "--launch-lanes", "5,2"])
+    res = kernel_bench.main(["--device", "cpu", "--launch", "--launch-lanes",
+                             "fq_rns_mul=5,miller_dbl=2"])
     out = capsys.readouterr().out
     assert [(r["kernel"], r["lanes"]) for r in res["launch"]] == [
         ("fq_rns_mul", 5), ("miller_dbl", 2)]
