@@ -137,7 +137,8 @@ HARD_WIDTHS = (1, 2, 3, 37)
 #: one lane, and around one warp's group of 16
 POW_WIDTHS = (1, 15, 16, 17)
 #: widths the limb kernels and the RNS chain are checked at besides their
-#: path's mean: one lane, a partial 128-lane block, full blocks
+#: path's mean: one lane, a ragged last warp (8 lanes a warp for the limb
+#: kernels; a partial 128-lane block for the chain), full blocks
 LIMB_WIDTHS = (1, 1001, 4096)
 CHAIN_WIDTHS = (1, 1001, 65536)
 CHAIN_CHECK = 8  # products per checked chain launch
@@ -150,15 +151,17 @@ LIMB_KERNELS = ("fq_limb_mul", "fq_limb_pow")
 BENCH_KERNELS = ("fq_rns_chain", "fma_probe")
 
 
-# The limb field (csrc/fq_limb.cu) runs on the float32 pipe alone.  Its
-# operations per lane, counted from the code (an FMA is 2, a multiply, add
-# or floor 1; a carry pass over n limbs is 5(n-1)+1): one carried product
-# is the 50x50 convolution 2*2500, carry3 over 99 limbs 3*491, fold 1
-# 2*50*51, carry3 over 50 limbs 3*246, fold 2 2*50*2 and carry3 again; a
-# multiply adds carry3 on both operands.  A row is 50 limbs of 4 bytes.
+# The limb field (csrc/fq_limb.cu).  Its operations per lane, counted from
+# the code (an FMA is 2, a multiply, add or floor 1; a carry pass over n
+# limbs is 5(n-1)+1): one carried product is the 50x50 convolution 2*2500,
+# carry3 over 99 limbs 3*491, carry3 over 50 limbs 3*246 twice (float32
+# operations), and the two folds, fold 1 (51 rows into 50 limbs) and fold 2
+# (2 rows), counted as tensor-core flops (2*50*51 + 2*50*2), as the RNS
+# extensions are; a multiply adds carry3 on both operands.  A row is 50
+# limbs of 4 bytes.
 LIMB_CARRY3_50 = 3 * (5 * 49 + 1)
-LIMB_CORE_OPS = 2 * 2500 + 3 * (5 * 98 + 1) + 2 * 50 * 51 + LIMB_CARRY3_50 + 2 * 50 * 2 \
-    + LIMB_CARRY3_50
+LIMB_CORE_OPS = 2 * 2500 + 3 * (5 * 98 + 1) + 2 * LIMB_CARRY3_50
+LIMB_CORE_TC_FLOPS = 2 * 50 * 51 + 2 * 50 * 2
 LIMB_MUL_OPS = LIMB_CORE_OPS + 2 * LIMB_CARRY3_50
 LIMB_ROW_BYTES = 50 * 4
 
@@ -292,7 +295,8 @@ def check_tower_kernels(dev, rng, widths, errs: dict) -> None:
 
 
 def check_limb_kernels(dev, rng, widths, errs: dict) -> None:
-    """The limb multiply and power against their plain versions at each
+    """The limb multiply (also with a one-row operand on either side, read
+    at lane stride 0) and power against their plain versions at each
     width, and samples against Python ints mod Q."""
     import torch
 
@@ -308,6 +312,10 @@ def check_limb_kernels(dev, rng, widths, errs: dict) -> None:
         got = LK.mul(a, b)
         errs["fq_limb_mul"] = max(errs.get("fq_limb_mul", 0.0),
                                   same("fq_limb_mul", got, LK.mul_plain(a, b)))
+        for tag, u, v in (("(50,) x rows", a[n // 2], b),
+                          ("rows x (1, 50)", a, b[n // 3:n // 3 + 1])):
+            errs["fq_limb_mul"] = max(errs["fq_limb_mul"], same(
+                f"fq_limb_mul {tag}", LK.mul(u, v), LK.mul_plain(u, v)))
         if L.to_ints(got[:64]) != [x * y % Q for x, y in zip(va[:64], vb[:64])]:
             raise AssertionError("fq_limb_mul disagrees with Python ints mod Q")
         got = LK.pow_fixed(a, Q - 2)
@@ -622,6 +630,7 @@ def limb_arm_child(in_path: str, out_path: str) -> int:
         "plains": [pt.hex() for pt in plains], "seconds": secs,
         "launches": {k: fn.launches for k, fn in fns.items()},
         "lanes": {k: fn.lanes for k, fn in fns.items()},
+        "fq_limb_mul_broadcast_launches": fns["fq_limb_mul"].broadcast_launches,
         "counters": {k: getattr(c, k) for k in (
             "device_dispatches", "pairing_checks", "rlc_groups", "fused_tower_calls",
             "stacked_chain_pallas_calls")},
@@ -672,7 +681,10 @@ def phase_limb_arm(state, n_items: int, card: str) -> dict:
         f"shares, {len(res['dec_ok'])} share verdicts ({res['dec_ok'].count(False)} forged) "
         f"and {len(res['plains'])} plaintexts equal the RNS arm's; child wall {wall:.3f} s, "
         f"seconds {json.dumps(res['seconds'])}")
-    return {**{k: res[k] for k in ("seconds", "launches", "lanes", "counters")},
+    log(f"limb arm: fq_limb_mul read a one-row operand at lane stride 0 in "
+        f"{res['fq_limb_mul_broadcast_launches']} of {launched['fq_limb_mul']} launches")
+    return {**{k: res[k] for k in ("seconds", "launches", "lanes", "counters",
+                                   "fq_limb_mul_broadcast_launches")},
             "wall_seconds": wall, "items": n_items}
 
 
@@ -871,22 +883,28 @@ def limb_kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list:
     common = {"route": "cuda", "source": "hbbft_tpu_torch/csrc/fq_limb.cu",
               "library_ms": None, "path": "limb arm"}
     rows = []
-    bound_ms, bound_by = roofline(n_mul * 3 * LIMB_ROW_BYTES, n_mul * LIMB_MUL_OPS)
+    bound_ms, bound_by = roofline(n_mul * 3 * LIMB_ROW_BYTES, n_mul * LIMB_MUL_OPS,
+                                  n_mul * LIMB_CORE_TC_FLOPS)
     rows.append({
         "name": "fq_limb_mul", **common, "replaces": "hbbft_tpu/ops/fq_pallas.py:182",
         "launches": launches["fq_limb_mul"], "max_abs_err": errs["fq_limb_mul"],
         "ms": time_ms(lambda: LK.mul(a, b)), "plain_ms": time_ms(lambda: LK.mul_plain(a, b)),
         "bound_ms": bound_ms, "bound_by": bound_by, "lanes": n_mul,
     })
+    # a throughput bound: the products of a lane are serial, which it does
+    # not count
     bound_ms, bound_by = roofline(n_pow * 2 * LIMB_ROW_BYTES,
-                                  n_pow * (products * LIMB_CORE_OPS + LIMB_CARRY3_50))
+                                  n_pow * (products * LIMB_CORE_OPS + LIMB_CARRY3_50),
+                                  n_pow * products * LIMB_CORE_TC_FLOPS)
     rows.append({
         "name": "fq_limb_pow", **common, "replaces": "hbbft_tpu/ops/fq_pallas.py:255",
         "launches": launches["fq_limb_pow"], "max_abs_err": errs["fq_limb_pow"],
         "ms": time_ms(lambda: LK.pow_fixed(x, e), reps=5),
         "plain_ms": time_ms(lambda: LK.pow_plain(x, e), reps=3),
         "bound_ms": bound_ms, "bound_by": bound_by, "lanes": n_pow,
+        "serial_products": products,
     })
+    log(f"fq_limb_pow e=Q-2: {products} serial products a lane at {n_pow} lanes")
     return rows
 
 
@@ -1091,7 +1109,8 @@ def main(argv=None) -> int:
             f"128 threads per SM; fq_rns_pow {K.pow_blocks_per_sm(dev)} blocks of 128 "
             f"threads per SM; miller_dbl {TK.resident_blocks(dev, 'miller_dbl')} and "
             f"hard_exp {TK.resident_blocks(dev, 'hard_exp')} blocks of 128 threads "
-            f"resident on the card")
+            f"resident on the card; fq_limb_mul {LK.mul_blocks_per_sm(dev)} and fq_limb_pow "
+            f"{LK.pow_blocks_per_sm(dev)} blocks of 128 threads per SM")
 
         t = time.perf_counter()
         errs = phase_kernels(dev, rng, MUL_LANES, POW_LANES)

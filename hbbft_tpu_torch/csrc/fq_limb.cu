@@ -7,46 +7,123 @@
 // and computes the same float32 limbs bit for bit (checked against the plain
 // PyTorch versions in hbbft_tpu_torch/ops/fq_limb_cuda.py).
 //
-// Exactness.  Carried limbs lie in [-1, 257]; every product (<= 257^2), every
-// convolution sum (<= 50 * 257^2 ~ 2^21.7) and every fold sum (<= 51 * 257 *
-// 255 ~ 2^21.7) is an integer below 2^24, so float32 is exact in any
-// summation order and FMA contraction changes nothing.  A carry splits x into
-// floor(x / 256) (an exact power-of-two scaling) and x - 256 * floor(..).
+// Exactness.  Carried limbs lie in [-1, 257] except the top one, which a
+// carry never splits; for operand values below 2^396 in magnitude (the limb
+// field's lazy bound) a carried operand's top limb is at most 18 in
+// magnitude and the carried convolution's top column (98) at most 368
+// (tests/test_torch_limb_body.py derives both and pins them at extreme
+// inputs).  Every product, convolution sum (<= 50 * 257^2 ~ 2^21.7) and fold
+// sum (< 2^22 without the top column, < 2^24 with it) is an integer below
+// 2^24, so float32 is exact in any summation order and FMA contraction
+// changes nothing.  A carry splits x into floor(x / 256) and x - 256 *
+// floor(..); the floors and the int <-> float conversions run as float32
+// FMAs and adds (floor_div below, i2f_w of fq_rns_core.cuh), not on the
+// conversion unit.
 // Compile without --use_fast_math.
 //
-// Layout.  Operands are the port's public (n, 50) float32 limb rows.  A block
-// owns TPB consecutive lanes; it copies its TPB x 50 slabs into shared memory
-// transposed to [limb][lane] (coalesced global reads, stride TPB+1 against
-// bank conflicts) and each thread runs whole products for ONE lane.  The
-// 99-limb accumulator and one operand (50 limbs) live in registers; the other
-// operand streams from the thread's own shared-memory column, one load per 50
-// multiply-adds.  The fold matrix is __constant__ and indexed at compile
-// time, so each fold multiply-add takes its weight as a constant-bank operand
-// with no load instruction.  No thread reads another thread's column, so the
-// products need no barriers and the power kernel chains its ~570 products
-// without leaving the SM.
-//
-// What bounds it on the H100.  Per product a lane does 2,500 convolution and
-// 2,650 fold multiply-adds plus ~2,200 carry operations (~13k float32 flops;
-// ~15k with a multiply's input carries) against 600 B of device memory (two
-// operands in, one out): ~25 flops per byte, above the card's float32
-// balance point (67 TFLOP/s over 3.35 TB/s = 20), so the multiply is bound by
-// the float32 pipe and the power kernel (~570 products per 400 B) entirely so.
+// What bounds them on the H100.  A multiply moves 600 B (two rows in, one
+// out) and does ~9,400 float32 operations (the convolution's 2,500
+// multiply-adds, the carries) and 5,300 tensor-core flops (the folds,
+// chip_smoke.LIMB_CORE_OPS): at the card's peaks the bytes bound it by a
+// hair (0.18 ns a lane against 0.14 ns), but what sets the pace is the
+// latency of the dependent carry passes and shuffles, which the SM's warps
+// do not fully hide (PERF.md).  The first design ran one product per
+// thread: a 99-float accumulator and a 50-float operand in registers (250
+// registers, 8 warps an SM), ~900 floors a product on the conversion unit,
+// the fold on the float32 pipe -- 324 M products/s at 262k lanes.  This
+// one deals each product to a TEAM of 4 threads (the multiply's `limb_team`):
+//  * the convolution: the 99 columns (padded to 104) form 8 ranges of 13;
+//    thread t owns ranges t and t + 4, which balances the triangle's work
+//    (5 chunks of 13 x 13 multiply-adds a thread, every thread alike); a
+//    chunk loads a 25-float window of a and 13 floats of b from the lane's
+//    shared-memory rows (zero-padded, so no bounds tests) and keeps 13
+//    accumulators in registers;
+//  * the carries of the convolution: a pass hands the top column's high
+//    part of each range to the next range's owner with one __shfl_sync
+//    (thread 3's first range ends at column 51, thread 0's second starts at
+//    52), old values throughout, column 98 (the top limb) kept whole;
+//  * fold 1 on the tensor cores: the team is one row of an m16n8k32 A tile
+//    (lane g of the warp's 8 lanes = row g; rows 8-15 zero), fold inputs
+//    48..97 (in [-1, 257] after three carries, whatever the operands) split
+//    c = 128 h + l into signed 8-bit planes, the fold weights (integers
+//    0..255, u8 B fragments built per block from FOLD_T), two s8 x u8 ->
+//    s32 products per k-step; 128 H + L is the integer the float32 fold
+//    sums, so the result is bit-equal by construction.  The top column,
+//    which the carries keep whole, takes its fold row on the float32 pipe
+//    (one FMA a limb), so the kernel is exact wherever the plain version
+//    is, not only inside the lazy bound;
+//  * the 50 fold outputs stay in the C-fragment layout (thread t holds
+//    limbs 8 nt + 2 t + {0, 1}), where the carries hand each pair's top
+//    carry on by __shfl_sync and fold 2 runs on the float32 pipe (its two
+//    inputs broadcast from thread 0);
+//  * registers stay under 96 (__launch_bounds__(128, 5); ptxas: 86, no
+//    spills, so 5-6 blocks of 4 warps an SM); a warp of the multiply holds
+//    8 lanes, each a 1,040 B region of shared memory (the operands' rows,
+//    the carried convolution); the body compiles to ~2,500 SASS
+//    instructions a kernel, not the first design's fully unrolled ~10k;
+//  * operands come in through cp.async (4-byte copies, consecutive threads
+//    on consecutive floats of the warp's contiguous slab of 8 rows) and go
+//    out with coalesced stores; a one-row operand is read at lane stride
+//    0; the blocks' warps (1, 2 or 4) are the fewest that spread the grid
+//    over the SMs (the wrapper picks them: fq_rns_cuda.fit_per_block), and
+//    the shared-memory limit is raised once per process (launch_setup).
+// fq_limb_pow: the accumulator starts at the carried base (MSB implicit),
+// and each later bit squares and, when set, multiplies by the base, which
+// stays in shared memory; nothing is re-carried between products.  Its 608
+// products a lane (e = Q-2) are serial, at ~14 lanes a launch, so what
+// bounds it is the latency of one product, 608 times over.  So the power
+// gives each lane a whole warp: the convolution, a thread's longest stage
+// in the team body (NCH chunks of 13 x 13 multiply-adds), is dealt over the
+// warp's 8 teams, one chunk a thread, and the partial sums meet in shared
+// memory (conv_warp); the carries and folds follow the mma fragment layout,
+// in which one A row belongs to four threads, so every team runs them
+// alike on the same lane (limb_tail), and the tensor cores' 8 rows are 8
+// copies of it.  A warp's region is 2,224 B: the rows, the carried
+// convolution, the base, the partial sums.
 
-#include <cuda_runtime.h>
+#include "fq_rns_core.cuh"  // i2f_w, MAGIC_F/MAGIC_I, launch_setup
 
 #define NLB 50         // limbs per element
 #define NCV 99         // convolution width (2 * NLB - 1)
 #define FF 48          // first folded limb: 2^(8 * 48) > Q
 #define NF 51          // fold rows (NCV - FF)
-#define TPB 128        // lanes (threads) per block
-#define LD (TPB + 1)   // shared-memory row stride of a transposed tile
 
-#define SMEM_BYTES (2 * NLB * LD * 4)
+#define TEAM 4         // threads per lane (one mma A row)
+#define LPW 8          // lanes per warp (the A tile's rows 0-7)
+#define CW 13          // convolution columns per range; 2 * TEAM ranges
+#define NCH 5          // chunks of CW j-steps per thread
+#define HSHIFT 10      // a second range's first chunk starts at j = CW * c - HSHIFT
+#define TOP_M 7        // column 98 is entry TOP_M of thread 3's second range
+#define NTL 7          // n-tiles of 8 fold outputs (50 -> 56)
+#define KSL 2          // k-steps of 32 fold inputs (51 -> 64)
+#define NS (2 * NTL)   // fold-layout slots a thread holds: limb 8 * nt + 2 * t + i
+
+// A lane's shared-memory region (floats).
+#define APAD 12        // a[i] at A_OFF + APAD + i, i in [-12, 62), zero outside [0, 50)
+#define A_OFF 0
+#define B_OFF 74       // b[j] at B_OFF + j, j in [0, 55), zero from 50
+#define B_LEN 55       // b's row length
+#define C_OFF 129      // the carried convolution, columns [0, 104)
+#define X_OFF 241      // the power's carried base, B form
+#define P_OFF 296      // the power's partial convolutions, [chunk][t][column]
+#define NPAD (2 * APAD + B_LEN - NLB)  // zero floats of a region: a's pads, b's tail
+#define MUL_RS 260     // region stride of the multiply (= 4 mod 32: see conv_team)
+#define POW_RS 556     // region stride of the power (one region a warp)
+
+#define PW_WORDS (NTL * KSL * 2 * 32)   // fold-1 B fragments: [nt][ks][reg][lane]
+#define FW_FLOATS (TEAM * NS * 4)       // float weights: [t][slot] (rows 0, 1, NF - 1, 0)
+#define TAB_FLOATS (PW_WORDS + FW_FLOATS)
+
+#define MAX_WARPS 4    // warps per block at most (the wrapper picks 1, 2 or 4)
+#define MUL_SMEM(w) ((TAB_FLOATS + (w) * LPW * MUL_RS) * 4)
+#define POW_SMEM(w) ((TAB_FLOATS + (w) * POW_RS) * 4)
+
+#define LFULL 0xffffffffu  // every lane of the warp
 
 // FOLD_T[k][j] = limb k of 2^(8 * (FF + j)) mod Q, the transpose of
-// fq_limb.FOLD_ROWS (the library checks it against the wrapper's at load).
-__constant__ float FOLD_T[NLB][NF] = {
+// fq_limb.FOLD_ROWS (the library checks it against the wrapper's at load);
+// the blocks build their fold fragments from it.
+__device__ float FOLD_T[NLB][NF] = {
     {253, 184, 153, 186, 175, 188, 118, 233, 102, 72, 80, 247, 252, 19, 30, 194, 157, 247, 42, 132, 75, 174, 32, 29, 231, 11, 147, 133, 96, 72, 51, 45, 15, 205, 133, 51, 32, 56, 5, 192, 215, 79, 10, 83, 89, 137, 37, 194, 70, 113, 237},
     {255, 252, 98, 152, 185, 174, 102, 117, 147, 187, 157, 79, 246, 81, 104, 29, 108, 156, 76, 212, 217, 74, 3, 117, 28, 60, 181, 61, 47, 181, 157, 136, 130, 14, 119, 218, 136, 117, 141, 4, 191, 44, 164, 95, 253, 3, 222, 36, 23, 240, 112},
     {2, 71, 14, 168, 233, 253, 227, 125, 186, 160, 192, 166, 83, 57, 136, 166, 43, 117, 200, 114, 222, 43, 128, 59, 142, 103, 83, 219, 136, 60, 215, 197, 206, 181, 52, 153, 15, 165, 197, 205, 45, 198, 119, 166, 176, 31, 51, 28, 52, 80, 3},
@@ -99,155 +176,439 @@ __constant__ float FOLD_T[NLB][NF] = {
     {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
 };
 
-// One carry pass: x[i] <- lo(x[i]) + hi(x[i-1]) over the OLD values, the top
-// limb kept whole (one pass of fq_limb.carry3).  Every step reads only old
-// values, so the pass has no serial dependency.
-template <int N>
-__device__ __forceinline__ void carry_pass(float (&x)[N]) {
-  float c = 0.f;
+// The fold-1 B fragments (u8 weights of fold rows 0..NF-2, m16n8k32 column
+// layout: lane 4g + t holds column 8 nt + g, rows 32 ks + 16 reg + 4 t +
+// byte) and the float weights of each fold-layout slot (fold rows 0 and 1
+// for fold 2, row NF - 1 for the top column), built into shared memory by
+// the block.
+__device__ __forceinline__ void load_tables(unsigned* PW, float4* FW) {
+  for (int w = threadIdx.x; w < PW_WORDS; w += blockDim.x) {
+    const int ln = w & 31, reg = (w >> 5) & 1, ks = (w >> 6) % KSL, nt = w / (64 * KSL);
+    const int k = 8 * nt + (ln >> 2);
+    unsigned word = 0;
 #pragma unroll
-  for (int i = 0; i < N - 1; ++i) {
-    const float h = floorf(x[i] * (1.f / 256.f));
-    const float l = fmaf(-256.f, h, x[i]);
-    x[i] = l + c;
-    c = h;
+    for (int q = 0; q < 4; ++q) {
+      const int f = 32 * ks + 16 * reg + 4 * (ln & 3) + q;
+      const unsigned v = (f < NF - 1 && k < NLB) ? (unsigned)FOLD_T[k][f] : 0u;
+      word |= v << (8 * q);
+    }
+    PW[w] = word;
   }
-  x[N - 1] += c;
-}
-
-template <int N>
-__device__ __forceinline__ void carry3(float (&x)[N]) {
-  carry_pass(x);
-  carry_pass(x);
-  carry_pass(x);
-}
-
-// O <- A*B mod Q as a lazy limb vector: the body of fq_pallas._mul_core.  A and
-// B are carried; A is in registers, B is a shared-memory column (stride LD).
-// O may be A itself: A is last read before O is first written.
-__device__ __forceinline__ void limb_core(const float (&a)[NLB], const float* B,
-                                          float (&o)[NLB]) {
-  float c[NCV];
-#pragma unroll
-  for (int k = 0; k < NCV; ++k) c[k] = 0.f;
-#pragma unroll
-  for (int j = 0; j < NLB; ++j) {
-    const float bj = B[j * LD];
-#pragma unroll
-    for (int i = 0; i < NLB; ++i) c[i + j] = fmaf(a[i], bj, c[i + j]);
-  }
-  carry3(c);
-  // Fold 1: the limbs >= FF through the mod-Q rows.
-#pragma unroll
-  for (int k = 0; k < NLB; ++k) {
-    float s = k < FF ? c[k] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NF; ++j) s = fmaf(c[FF + j], FOLD_T[k][j], s);
-    o[k] = s;
-  }
-  carry3(o);
-  // Fold 2: tidy the two limbs >= FF.
-  const float h0 = o[FF], h1 = o[FF + 1];
-#pragma unroll
-  for (int k = 0; k < NLB; ++k) {
-    float s = k < FF ? o[k] : 0.f;
-    s = fmaf(h0, FOLD_T[k][0], s);
-    o[k] = fmaf(h1, FOLD_T[k][1], s);
-  }
-  carry3(o);
-}
-
-// Block-cooperative copies between a (n, 50) global slab and a tile.
-__device__ __forceinline__ void load_tile(float* T, const float* g, int cnt) {
-  for (int k = threadIdx.x; k < TPB * NLB; k += TPB) {
-    int lane = k / NLB;
-    int row = k - lane * NLB;
-    T[row * LD + lane] = lane < cnt ? g[k] : 0.f;
+  for (int s = threadIdx.x; s < TEAM * NS; s += blockDim.x) {
+    const int t = s / NS, slot = s - t * NS;
+    const int k = 8 * (slot >> 1) + 2 * t + (slot & 1);
+    FW[s] = k < NLB ? make_float4(FOLD_T[k][0], FOLD_T[k][1], FOLD_T[k][NF - 1], 0.f)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
-__device__ __forceinline__ void store_tile(float* g, const float* T, int cnt) {
-  for (int k = threadIdx.x; k < cnt * NLB; k += TPB) {
-    int lane = k / NLB;
-    int row = k - lane * NLB;
-    g[k] = T[row * LD + lane];
+// D += A.B for one m16n8k32 tile: A 16x32 s8 (row; rows 8-15 zero), B
+// 32x8 u8 (col).
+__device__ __forceinline__ void mma_s8u8(int (&d)[4], unsigned a0, unsigned a2, unsigned b0,
+                                         unsigned b1) {
+  const unsigned z = 0u;
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(z), "r"(a2), "r"(z), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ int team_lane(int lane, int s) { return (lane & ~(TEAM - 1)) | s; }
+
+// floor(x * inv) for a power of two inv and |x * inv| < 2^22: floor_w of
+// fq_rns_core.cuh with the scaling folded in.  The FMA's exact x * inv +
+// MAGIC_F, rounded down once, lands on floor(x * inv) + MAGIC_F.
+__device__ __forceinline__ float floor_div(float x, float inv) {
+  return __fmaf_rd(x, inv, MAGIC_F) - MAGIC_F;
+}
+
+// Limb of fold-layout slot s of team thread t (the C-fragment column).
+__device__ __forceinline__ int p_limb(int s, int t) { return 8 * (s >> 1) + 2 * t + (s & 1); }
+
+__device__ __forceinline__ void read_p(float (&x)[NS], const float* row, int t) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int k = p_limb(s, t);
+    x[s] = k < NLB ? row[k] : 0.f;
   }
 }
 
-__device__ __forceinline__ void read_col(float (&x)[NLB], const float* col) {
+__device__ __forceinline__ void write_p(float* row, const float (&x)[NS], int t) {
 #pragma unroll
-  for (int i = 0; i < NLB; ++i) x[i] = col[i * LD];
+  for (int s = 0; s < NS; ++s) {
+    const int k = p_limb(s, t);
+    if (k < NLB) row[k] = x[s];
+  }
 }
 
-__device__ __forceinline__ void write_col(float* col, const float (&x)[NLB]) {
+// One carry pass (a pass of fq_limb.carry3: x[i] <- lo(x[i]) + hi(x[i-1])
+// over the old values, the top limb kept whole) over 50 limbs in the fold
+// layout.  Within a slot pair the carry stays in the thread; a pair's top
+// carry goes to the next thread (thread 3's to thread 0's next pair).
+__device__ __forceinline__ void carry_p(float (&x)[NS], int t, int lane) {
+  float h[NS], r[NTL];
+  const int src = team_lane(lane, (t + TEAM - 1) & (TEAM - 1));
 #pragma unroll
-  for (int i = 0; i < NLB; ++i) col[i * LD] = x[i];
+  for (int s = 0; s < NS; ++s) h[s] = floor_div(x[s], 1.f / 256.f);
+  if (t == 0) h[NS - 1] = 0.f;  // limb 49, the top, is kept whole
+#pragma unroll
+  for (int nt = 0; nt < NTL; ++nt) r[nt] = __shfl_sync(LFULL, h[2 * nt + 1], src);
+#pragma unroll
+  for (int nt = 0; nt < NTL; ++nt) {
+    const float cin = t ? r[nt] : (nt ? r[nt - 1] : 0.f);
+    x[2 * nt + 1] = fmaf(-256.f, h[2 * nt + 1], x[2 * nt + 1]) + h[2 * nt];
+    x[2 * nt] = fmaf(-256.f, h[2 * nt], x[2 * nt]) + cin;
+  }
 }
 
-__global__ void __launch_bounds__(TPB)
-fq_limb_mul_kernel(const float* __restrict__ a, const float* __restrict__ b,
+__device__ __forceinline__ void carry3_p(float (&x)[NS], int t, int lane) {
+  carry_p(x, t, lane);
+  carry_p(x, t, lane);
+  carry_p(x, t, lane);
+}
+
+// One carry pass over the convolution's columns as the team deals them:
+// thread t holds columns CW t + m (lo) and CW (t + TEAM) + m (hi).
+__device__ __forceinline__ void carry_cols(float (&lo)[CW], float (&hi)[CW], int t, int lane) {
+  float hl[CW], hh[CW];
+#pragma unroll
+  for (int m = 0; m < CW; ++m) {
+    hl[m] = floor_div(lo[m], 1.f / 256.f);
+    hh[m] = floor_div(hi[m], 1.f / 256.f);
+  }
+  if (t == TEAM - 1) hh[TOP_M] = 0.f;  // column 98, the top, is kept whole
+  const int src = team_lane(lane, (t + TEAM - 1) & (TEAM - 1));
+  const float rl = __shfl_sync(LFULL, hl[CW - 1], src);
+  const float rh = __shfl_sync(LFULL, hh[CW - 1], src);
+  const float cl = t ? rl : 0.f;  // column 0 takes no carry
+  const float ch = t ? rh : rl;   // column 52 takes thread 3's column 51
+#pragma unroll
+  for (int m = CW - 1; m >= 0; --m) {
+    lo[m] = fmaf(-256.f, hl[m], lo[m]) + (m ? hl[m - 1] : cl);
+    hi[m] = fmaf(-256.f, hh[m], hi[m]) + (m ? hh[m - 1] : ch);
+  }
+}
+
+// The convolution c[k] = sum_{i+j=k} a[i] b[j] of the team's lane, dealt as
+// carry_cols holds it.  A: a's padded row (a[i] at A[APAD + i]); B: b's row.
+// Thread t runs NCH chunks: chunks 0..t cover its first range (k0 = CW t,
+// j from CW c), the rest its second (k0 = CW (t + TEAM), j from CW c -
+// HSHIFT), 13 j-steps each; out-of-range terms meet the rows' zero pads.
+// conv_chunk adds chunk c of thread t into acc.
+__device__ __forceinline__ void conv_chunk(const float* A, const float* B, int t, int c,
+                                           float (&acc)[CW]) {
+  const bool first = c <= t;
+  const int k0 = first ? CW * t : CW * (t + TEAM);
+  const int j0 = first ? CW * c : CW * c - HSHIFT;
+  const float* w = A + APAD + k0 - j0 - (CW - 1);  // w[e] = a[k0 - j0 - 12 + e]
+  float win[2 * CW - 1];
+#pragma unroll
+  for (int e = 0; e < 2 * CW - 1; ++e) win[e] = w[e];
+#pragma unroll
+  for (int d = 0; d < CW; ++d) {
+    const float bj = B[j0 + d];
+#pragma unroll
+    for (int m = 0; m < CW; ++m) acc[m] = fmaf(win[CW - 1 + m - d], bj, acc[m]);
+  }
+}
+
+// The multiply's convolution: thread t runs its NCH chunks in turn.  With a
+// region stride of 4 mod 32, the 32 threads' window loads of a chunk fall
+// in distinct banks whenever the team's threads are all in their first or
+// all in their second range.
+__device__ __forceinline__ void conv_team(const float* A, const float* B, int t,
+                                          float (&lo)[CW], float (&hi)[CW]) {
+  float acc[CW];
+#pragma unroll
+  for (int m = 0; m < CW; ++m) acc[m] = lo[m] = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < NCH; ++c) {
+    conv_chunk(A, B, t, c, acc);
+    if (c == t) {  // the first range is done: keep it, start the second
+#pragma unroll
+      for (int m = 0; m < CW; ++m) {
+        lo[m] = acc[m];
+        acc[m] = 0.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < CW; ++m) hi[m] = acc[m];
+}
+
+// The power's convolution, one lane a warp: the warp's 8 teams all hold
+// the lane, and team g < NCH runs chunk g of every thread's schedule
+// (thread 4 g + t: chunk g of thread t), so each thread runs one chunk, not
+// NCH.  The partial sums meet in P ([chunk][t][column], stride CW: the
+// writes fall in distinct banks); every team then sums them into the
+// ranges of conv_team (chunks 0..t into lo, the rest into hi).
+__device__ __forceinline__ void conv_warp(const float* A, const float* B, float* P, int t,
+                                          int g, float (&lo)[CW], float (&hi)[CW]) {
+  if (g < NCH) {
+    float acc[CW];
+#pragma unroll
+    for (int m = 0; m < CW; ++m) acc[m] = 0.f;
+    conv_chunk(A, B, t, g, acc);
+#pragma unroll
+    for (int m = 0; m < CW; ++m) P[(g * TEAM + t) * CW + m] = acc[m];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < CW; ++m) lo[m] = hi[m] = 0.f;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+    for (int m = 0; m < CW; ++m) {
+      const float v = P[(c * TEAM + t) * CW + m];
+      if (c <= t)
+        lo[m] += v;
+      else
+        hi[m] += v;
+    }
+  }
+}
+
+// The team body after the convolution: the carried convolution's columns
+// (lo, hi as conv_team deals them) -> a*b mod Q as a lazy limb vector
+// (fq_pallas._mul_core) for the team's lane, in the fold layout.  R: the
+// lane's region.  Every thread of the warp calls it together.  On return
+// the rows at A_OFF and B_OFF are spent (every thread has passed the
+// convolution), so the caller may write the result there.
+__device__ __forceinline__ void limb_tail(float* R, float (&lo)[CW], float (&hi)[CW],
+                                          const unsigned* PW, const float4* FW, int t, int lane,
+                                          float (&o)[NS]) {
+  carry_cols(lo, hi, t, lane);
+  carry_cols(lo, hi, t, lane);
+  carry_cols(lo, hi, t, lane);
+  float* C = R + C_OFF;
+#pragma unroll
+  for (int m = 0; m < CW; ++m) {
+    C[CW * t + m] = lo[m];
+    C[CW * (t + TEAM) + m] = hi[m];
+  }
+  __syncwarp();
+
+  // Fold 1: the limbs >= FF through the fold rows.  Columns 48..97 (in
+  // [-1, 257] after the carries, whatever the operands) on the tensor
+  // cores, the top column (kept whole, so unbounded by the carries) on the
+  // float32 pipe.  A fragments: this thread's fold inputs f = 32 ks + 16 reg
+  // + 4 t + q < NF - 1, split c = 128 h + l (l in [0, 128), h = floor(c /
+  // 128) in [-1, 2]).
+  unsigned al[KSL][2], ah[KSL][2];
+#pragma unroll
+  for (int ks = 0; ks < KSL; ++ks) {
+#pragma unroll
+    for (int reg = 0; reg < 2; ++reg) {
+      unsigned wl = 0, wh = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int f = 32 * ks + 16 * reg + 4 * t + q;
+        const float v = f < NF - 1 ? C[FF + f] : 0.f;
+        const float hm = __fmaf_rd(v, 1.f / 128.f, MAGIC_F);  // floor(v / 128) + MAGIC_F
+        const float l = fmaf(-128.f, hm - MAGIC_F, v);
+        const int hb = __float_as_int(hm) - MAGIC_I;
+        const int lb = __float_as_int(l + MAGIC_F) - MAGIC_I;
+        wl |= (unsigned)(lb & 0xff) << (8 * q);
+        wh |= (unsigned)(hb & 0xff) << (8 * q);
+      }
+      al[ks][reg] = wl;
+      ah[ks][reg] = wh;
+    }
+  }
+  const float top = C[NCV - 1];
+#pragma unroll
+  for (int nt = 0; nt < NTL; ++nt) {
+    int L[4] = {0, 0, 0, 0}, H[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int ks = 0; ks < KSL; ++ks) {
+      const unsigned b0 = PW[((nt * KSL + ks) * 2 + 0) * 32 + lane];
+      const unsigned b1 = PW[((nt * KSL + ks) * 2 + 1) * 32 + lane];
+      mma_s8u8(L, al[ks][0], al[ks][1], b0, b1);
+      mma_s8u8(H, ah[ks][0], ah[ks][1], b0, b1);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int k = 8 * nt + 2 * t + i;
+      const float wt = FW[t * NS + 2 * nt + i].z;
+      o[2 * nt + i] = fmaf(top, wt, i2f_w(128 * H[i] + L[i])) + (k < FF ? C[k] : 0.f);
+    }
+  }
+  carry3_p(o, t, lane);
+
+  // Fold 2 (float32 pipe): the two limbs >= FF, held by thread 0.
+  const int t0 = team_lane(lane, 0);
+  const float h0 = __shfl_sync(LFULL, o[NS - 2], t0);
+  const float h1 = __shfl_sync(LFULL, o[NS - 1], t0);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const float4 w = FW[t * NS + s];
+    const float base = p_limb(s, t) < FF ? o[s] : 0.f;
+    o[s] = fmaf(h1, w.y, fmaf(h0, w.x, base));
+  }
+  carry3_p(o, t, lane);
+}
+
+// The multiply's team body: a's carried row at R + A_OFF, b's at R + B_OFF.
+__device__ __forceinline__ void limb_team(float* R, const unsigned* PW, const float4* FW, int t,
+                                          int lane, float (&o)[NS]) {
+  float lo[CW], hi[CW];
+  conv_team(R + A_OFF, R + B_OFF, t, lo, hi);
+  limb_tail(R, lo, hi, PW, FW, t, lane, o);
+}
+
+// -- the warps' rows ------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Zero the pads of the warp's lpw regions (stride rs).
+__device__ __forceinline__ void zero_pads(float* regs, int rs, int lpw, int lane) {
+  for (int e = lane; e < lpw * NPAD; e += 32) {
+    const int r = e / NPAD, p = e - r * NPAD;
+    const int off = p < APAD ? A_OFF + p
+                    : p < 2 * APAD ? A_OFF + APAD + NLB + (p - APAD)
+                                   : B_OFF + NLB + (p - 2 * APAD);
+    regs[r * rs + off] = 0.f;
+  }
+}
+
+// Start copying the warp's lpw rows of src (row l at src + l * s: s = 50,
+// or 0 for a one-row operand) into the regions at offset off; rows past n
+// are zero.  Consecutive threads copy consecutive floats.
+__device__ __forceinline__ void stage_rows(float* regs, int rs, int off, const float* src,
+                                           int s, long l0, int n, int lpw, int lane) {
+  for (int e = lane; e < lpw * NLB; e += 32) {
+    const int r = e / NLB, k = e - r * NLB;
+    float* dst = regs + r * rs + off + k;
+    if (l0 + r < n)
+      cp_async4(dst, src + (l0 + r) * s + k);
+    else
+      *dst = 0.f;
+  }
+}
+
+// Store the warp's valid rows from the regions at offset off to out.
+__device__ __forceinline__ void store_rows(float* out, const float* regs, int rs, int off,
+                                           long l0, int n, int lpw, int lane) {
+  const int cnt = (int)min((long)lpw, (long)n - l0);
+  for (int e = lane; e < cnt * NLB; e += 32) {
+    const int r = e / NLB, k = e - r * NLB;
+    out[(l0 + r) * NLB + k] = regs[r * rs + off + k];
+  }
+}
+
+// Warp w of block b owns lanes [8 g, 8 g + 8), g = b * warps + w; team
+// (lane / 4) of the warp owns lane 8 g + lane / 4.  Lane l reads row l * sa
+// of a and l * sb of b (sa, sb: 50, or 0 for a one-row operand).
+__global__ void __launch_bounds__(32 * MAX_WARPS, 5)
+fq_limb_mul_kernel(const float* __restrict__ a, int sa, const float* __restrict__ b, int sb,
                    float* __restrict__ out, int n) {
-  extern __shared__ float smem[];
-  float* A = smem;
-  float* B = A + NLB * LD;
-  const long base = (long)blockIdx.x * TPB;
-  const int cnt = (int)min((long)TPB, (long)n - base);
-  load_tile(A, a + base * NLB, cnt);
-  load_tile(B, b + base * NLB, cnt);
+  extern __shared__ __align__(16) float smem[];
+  unsigned* PW = reinterpret_cast<unsigned*>(smem);
+  float4* FW = reinterpret_cast<float4*>(smem + PW_WORDS);
+  load_tables(PW, FW);
   __syncthreads();
-  const int t = threadIdx.x;
-  float x[NLB];
-  read_col(x, B + t);  // b carried in its own column
-  carry3(x);
-  write_col(B + t, x);
-  read_col(x, A + t);
-  carry3(x);
-  limb_core(x, B + t, x);
-  write_col(A + t, x);
-  __syncthreads();
-  store_tile(out + base * NLB, A, cnt);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & (TEAM - 1);
+  const long l0 = ((long)blockIdx.x * (blockDim.x >> 5) + warp) * LPW;
+  if (l0 >= n) return;  // warp-uniform; no block barrier follows
+  float* regs = smem + TAB_FLOATS + warp * LPW * MUL_RS;
+  float* R = regs + (lane / TEAM) * MUL_RS;
+  zero_pads(regs, MUL_RS, LPW, lane);
+  stage_rows(regs, MUL_RS, A_OFF + APAD, a, sa, l0, n, LPW, lane);
+  stage_rows(regs, MUL_RS, B_OFF, b, sb, l0, n, LPW, lane);
+  cp_async_wait();
+  __syncwarp();
+  // carry both operands in place (each thread its own slots); the two
+  // carries are independent, so their passes interleave
+  float x[NS], y[NS];
+  read_p(x, R + A_OFF + APAD, t);
+  read_p(y, R + B_OFF, t);
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+    carry_p(x, t, lane);
+    carry_p(y, t, lane);
+  }
+  write_p(R + A_OFF + APAD, x, t);
+  write_p(R + B_OFF, y, t);
+  __syncwarp();
+  limb_team(R, PW, FW, t, lane, x);
+  write_p(R + A_OFF + APAD, x, t);
+  __syncwarp();
+  store_rows(out, regs, MUL_RS, A_OFF + APAD, l0, n, LPW, lane);
 }
 
-__global__ void __launch_bounds__(TPB)
-fq_limb_pow_kernel(const float* __restrict__ x, const int* __restrict__ bits,
-                   int nbits, float* __restrict__ out, int n) {
-  extern __shared__ float smem[];
-  float* X = smem;         // the carried base
-  float* S = X + NLB * LD; // the accumulator, staged as a streamed operand
-  const long base = (long)blockIdx.x * TPB;
-  const int cnt = (int)min((long)TPB, (long)n - base);
-  load_tile(X, x + base * NLB, cnt);
+// Warp w of block b owns lane b * warps + w, and each of its 8 teams holds
+// that lane: the convolution is dealt over the teams (conv_warp), the rest
+// of each product runs in every team alike (their mma rows are the same
+// lane), so one product takes one chunk of convolution a thread, not NCH.
+// The base stays carried at X_OFF; the accumulator's row is written at
+// A_OFF and B_OFF after every product.
+__global__ void __launch_bounds__(32 * MAX_WARPS, 4)
+fq_limb_pow_kernel(const float* __restrict__ x, const int* __restrict__ bits, int nbits,
+                   float* __restrict__ out, int n) {
+  extern __shared__ __align__(16) float smem[];
+  unsigned* PW = reinterpret_cast<unsigned*>(smem);
+  float4* FW = reinterpret_cast<float4*>(smem + PW_WORDS);
+  load_tables(PW, FW);
   __syncthreads();
-  const int t = threadIdx.x;
-  float acc[NLB];
-  read_col(acc, X + t);
-  carry3(acc);
-  write_col(X + t, acc);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & (TEAM - 1);
+  const int g = lane / TEAM;
+  const long l0 = (long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (l0 >= n) return;  // warp-uniform; no block barrier follows
+  float* R = smem + TAB_FLOATS + warp * POW_RS;
+  zero_pads(R, POW_RS, 1, lane);
+  // the base's row is read as b is: zero after limb 49
+  if (lane < B_LEN - NLB) R[X_OFF + NLB + lane] = 0.f;
+  stage_rows(R, POW_RS, A_OFF + APAD, x, NLB, l0, n, 1, lane);
+  cp_async_wait();
+  __syncwarp();
+  float acc[NS];
+  read_p(acc, R + A_OFF + APAD, t);
+  carry3_p(acc, t, lane);
+  write_p(R + X_OFF, acc, t);
+  write_p(R + A_OFF + APAD, acc, t);
+  write_p(R + B_OFF, acc, t);
+  __syncwarp();
   // MSB implicit: the accumulator starts at the carried base and nothing is
   // re-carried between products.  The bit schedule is the same for every
-  // lane, so the multiply is a branch rather than the reference's blend.
-  // One product per trip (a square, then the multiply when the bit is set)
-  // keeps a single inlined copy of the body: two copies spill registers.
+  // lane, so the multiply is a branch rather than the reference's blend;
+  // one call site walks the schedule.
   int i = 1;
   bool square = true;
 #pragma unroll 1
   while (i < nbits) {
-    const float* col = X + t;
-    if (square) {
-      write_col(S + t, acc);
-      col = S + t;
-    }
-    limb_core(acc, col, acc);
-    if (square && bits[i]) {
+    float lo[CW], hi[CW];
+    conv_warp(R + A_OFF, R + (square ? B_OFF : X_OFF), R + P_OFF, t, g, lo, hi);
+    limb_tail(R, lo, hi, PW, FW, t, lane, acc);
+    write_p(R + A_OFF + APAD, acc, t);
+    write_p(R + B_OFF, acc, t);
+    __syncwarp();
+    if (square && __ldg(bits + i)) {
       square = false;
     } else {
       square = true;
       ++i;
     }
   }
-  write_col(S + t, acc);
-  __syncthreads();
-  store_tile(out + base * NLB, S, cnt);
+  store_rows(out, R, POW_RS, A_OFF + APAD, l0, n, 1, lane);
+}
+
+// Launch set-up, once per process and device (launch_setup).
+static LaunchSetup g_mul[MAX_DEVICES], g_pow[MAX_DEVICES];
+
+static const LaunchSetup& mul_setup() {
+  return launch_setup(g_mul, fq_limb_mul_kernel, 32 * MAX_WARPS, MUL_SMEM(MAX_WARPS));
+}
+
+static const LaunchSetup& pow_setup() {
+  return launch_setup(g_pow, fq_limb_pow_kernel, 32 * MAX_WARPS, POW_SMEM(MAX_WARPS));
 }
 
 extern "C" {
@@ -259,25 +620,41 @@ int fq_limb_read_fold(float* host) {
   return (int)cudaMemcpyFromSymbol(host, FOLD_T, sizeof(FOLD_T));
 }
 
+// Blocks of 4 warps resident on one SM, or a negative CUDA error code.
+int fq_limb_mul_blocks_per_sm(void) {
+  const LaunchSetup& s = mul_setup();
+  return s.rc ? -s.rc : s.per_sm;
+}
+
+int fq_limb_pow_blocks_per_sm(void) {
+  const LaunchSetup& s = pow_setup();
+  return s.rc ? -s.rc : s.per_sm;
+}
+
 // Each launcher returns cudaGetLastError() after its launch (0 = launched).
-int fq_limb_mul(const float* a, const float* b, float* out, int n, void* stream) {
+// warps: warps per block (1, 2 or 4), 8 lanes each (the multiply) or one
+// (the power).
+int fq_limb_mul(const float* a, int sa, const float* b, int sb, float* out, int n, int warps,
+                void* stream) {
   if (n <= 0) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      fq_limb_mul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  unsigned grid = (unsigned)((n + TPB - 1) / TPB);
-  fq_limb_mul_kernel<<<grid, TPB, SMEM_BYTES, (cudaStream_t)stream>>>(a, b, out, n);
+  if (warps < 1 || warps > MAX_WARPS) return (int)cudaErrorInvalidValue;
+  const int rc = mul_setup().rc;
+  if (rc) return rc;
+  const long groups = ((long)n + LPW - 1) / LPW;
+  const unsigned grid = (unsigned)((groups + warps - 1) / warps);
+  fq_limb_mul_kernel<<<grid, 32 * warps, MUL_SMEM(warps), (cudaStream_t)stream>>>(
+      a, sa, b, sb, out, n);
   return (int)cudaGetLastError();
 }
 
-int fq_limb_pow(const float* x, const int* bits, int nbits, float* out, int n,
+int fq_limb_pow(const float* x, const int* bits, int nbits, float* out, int n, int warps,
                 void* stream) {
   if (n <= 0) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      fq_limb_pow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  unsigned grid = (unsigned)((n + TPB - 1) / TPB);
-  fq_limb_pow_kernel<<<grid, TPB, SMEM_BYTES, (cudaStream_t)stream>>>(
+  if (warps < 1 || warps > MAX_WARPS) return (int)cudaErrorInvalidValue;
+  const int rc = pow_setup().rc;
+  if (rc) return rc;
+  const unsigned grid = (unsigned)(((long)n + warps - 1) / warps);
+  fq_limb_pow_kernel<<<grid, 32 * warps, POW_SMEM(warps), (cudaStream_t)stream>>>(
       x, bits, nbits, out, n);
   return (int)cudaGetLastError();
 }

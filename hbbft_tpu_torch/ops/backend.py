@@ -110,13 +110,11 @@ class TorchBackend(CryptoBackend):
     device_combine_threshold = 8
     #: max ladder lanes (items × shares) per combine/generation dispatch
     device_lane_cap = 1 << 15
-    #: max pairing checks per device dispatch
-    pairing_lane_cap = 2048
+    #: max pairing checks per device dispatch (``HBBFT_TPU_PAIR_CAP``,
+    #: read once at import as the reference reads it)
+    pairing_lane_cap = int(os.environ.get("HBBFT_TPU_PAIR_CAP", "2048"))
     #: groups of at least this many same-ciphertext shares take the RLC path
     rlc_min_group = 3
-    #: RLC coefficient width: a forged share survives a group check with
-    #: probability 2^-64, and False only ever comes from an exact pairing
-    rlc_bits = 64
     #: observed-rejection rate below which groups are left at full size
     rlc_adapt_min_rate = 0.005
 
@@ -154,12 +152,14 @@ class TorchBackend(CryptoBackend):
                 self.counters.host_assembly_seconds += time.perf_counter() - t0
 
     def _prep_scalars(self, prep, scalars):
-        """Run a curve.prep_g*_scalars host prep under the GLV counters."""
+        """Run a curve.prep_g*_scalars host prep under the GLV counters
+        (billed only while the GLV/GLS form is on, as the reference bills)."""
         t0 = time.perf_counter()
         bits, negs = prep(scalars)
-        c = self.counters
-        c.glv_table_build_seconds += time.perf_counter() - t0
-        c.glv_decompositions += len(scalars)
+        if curve.glv_enabled():
+            c = self.counters
+            c.glv_table_build_seconds += time.perf_counter() - t0
+            c.glv_decompositions += len(scalars)
         return bits, negs
 
     def _count_ladder(self, bits, lanes: int, glv: bool, ladders_per_lane: int = 1) -> None:
@@ -300,10 +300,22 @@ class TorchBackend(CryptoBackend):
     # bisected; leaves below 2·rlc_min_group get exact per-item checks, so
     # False only ever comes from an exact pairing.
 
+    @classmethod
+    def _rlc_bits(cls) -> int:
+        """RLC coefficient width: a forged share survives a group check
+        with probability 2^-bits, and False only ever comes from an exact
+        pairing.  ``HBBFT_TPU_RLC_BITS`` (default 64) is read per batch."""
+        return int(os.environ.get("HBBFT_TPU_RLC_BITS", "64"))
+
+    @staticmethod
+    def _adaptive_rlc_enabled() -> bool:
+        """``HBBFT_TPU_NO_ADAPTIVE_RLC=1`` keeps groups at full size."""
+        return os.environ.get("HBBFT_TPU_NO_ADAPTIVE_RLC", "0") != "1"
+
     @staticmethod
     def _rlc_scalars(count: int) -> List[int]:
         """``count`` nonzero RLC coefficients from ONE OS-CSPRNG draw."""
-        bits = TorchBackend.rlc_bits
+        bits = TorchBackend._rlc_bits()
         top = (1 << bits) - 1
         nb = (bits + 7) // 8
         buf = os.urandom(nb * count)
@@ -316,7 +328,10 @@ class TorchBackend(CryptoBackend):
 
     def _rlc_adaptive_cap(self) -> Optional[int]:
         """Max initial group size for the next batch (k* ≈ 0.7/c for an
-        observed contamination c), or None in the honest regime."""
+        observed contamination c), or None in the honest regime or with
+        the adaptive cap switched off."""
+        if not self._adaptive_rlc_enabled():
+            return None
         rate = self._rlc_observed_rate()
         if rate < self.rlc_adapt_min_rate:
             return None
@@ -407,7 +422,7 @@ class TorchBackend(CryptoBackend):
                 for gi, grp in enumerate(padded)
                 for j, idx in enumerate(grp)
             ]
-            rbits = curve.scalars_to_bits(scalars, self.rlc_bits).reshape(g, k, -1)
+            rbits = curve.scalars_to_bits(scalars, self._rlc_bits()).reshape(g, k, -1)
             args = tuple(build_group_arrays(padded, g, k)) + (self._tensor(rbits),)
         # two RLC_BITS-wide w2 ladders per lane (share + key combine)
         n_items = sum(len(grp) for grp in pending)
@@ -595,14 +610,15 @@ class TorchBackend(CryptoBackend):
 
     def _combine_prep(self, idxs: Tuple[int, ...]):
         """Memoized (bits, negs) ladder form of the Lagrange coefficients
-        over share indices ``idxs`` (0-based)."""
-        hit = self._prep_memo.get(idxs)
+        over share indices ``idxs`` (0-based) and the GLV arm."""
+        key = (idxs, curve.glv_enabled())
+        hit = self._prep_memo.get(key)
         if hit is None:
             lam = lagrange_coeffs_at_zero([i + 1 for i in idxs])
             hit = self._prep_scalars(curve.prep_g1_scalars, lam)
             if len(self._prep_memo) >= 4096:
                 self._prep_memo.clear()
-            self._prep_memo[idxs] = hit
+            self._prep_memo[key] = hit
         return hit
 
     def _lane_capped_step(self, k: int) -> int:
@@ -635,7 +651,7 @@ class TorchBackend(CryptoBackend):
             P = tree_map(lambda c: c.reshape((b, k) + tuple(c.shape[1:])), P)
             bits = self._tensor(np.stack(bits_rows))
             negs = self._tensor(np.stack(negs_rows))
-        self._count_ladder(bits_rows[0], len(share_dicts) * k, glv=True)
+        self._count_ladder(bits_rows[0], len(share_dicts) * k, glv=bits_rows[0].ndim == 3)
         self.counters.device_dispatches += 1
         return self._dispatch_async(
             curve.linear_combine_g1, (P, bits, negs), kind="combine", items=len(share_dicts),

@@ -7,16 +7,19 @@ parameterized by a small field-ops namespace.
 * Infinity is an explicit boolean lane carried next to (X, Y, Z); all
   formulas are total and results are selected, never branched on.
 * Scalar multiplication is a fixed MSB-first ladder (2-bit windows) over
-  the bit axis — one Python loop step per window, every lane in step.
-* The plain Jacobian add assumes P ≠ ±Q; the w2 ladder carries a
+  the bit axis — one Python loop step per window, every lane in step;
+  ``HBBFT_TPU_LADDER_BINARY`` (or an odd width) takes the binary ladder.
+* The plain Jacobian add assumes P ≠ ±Q; the classic ladders carry a
   structural proof that the degenerate case cannot occur for scalars
-  below 2^254, which its one caller, the 64-bit RLC combine, meets.
+  below 2^254 (``safe_scalar``), which their callers meet: the 64-bit
+  RLC combine, and the full-width ladders with GLV switched off.
   The GLV/GLS joint-table ladders cannot carry such a proof and use the
   select-routed complete add (exact zero tests, ``fq.is_zero``).
 * GLV/GLS endomorphism decomposition: G1 k = k1 + λ·k2 with |k1|,|k2| ≤ 2^127; G2 4-way GLS with
   |k_j| < 2^63; a 16-entry per-lane joint table built in a fixed order and
   a 64-step Shamir ladder whose table rows are picked by index gather.
-  Outputs are identical to the w2 ladder's.
+  Outputs are identical to the w2 ladder's.  ``HBBFT_TPU_NO_GLV`` (or
+  ``HBBFT_TPU_LADDER_BINARY``), read per batch, restores the classic form.
 
 Where JAX used ``vmap``, batch axes here are simply leading tensor axes:
 every point operation is elementwise over them, and the linear
@@ -25,6 +28,7 @@ combinations reduce over the LAST batch axis.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -237,16 +241,25 @@ def _pt_map(P, fc, finf):
     return tuple(tree_map(fc, P[k]) for k in range(3)) + (finf(P[3]),)
 
 
+def _binary_ladder() -> bool:
+    """The legacy ``HBBFT_TPU_LADDER_BINARY`` switch, read per call."""
+    return bool(os.environ.get("HBBFT_TPU_LADDER_BINARY"))
+
+
 def scalar_mul(F, bits: torch.Tensor, P):
     """2-bit windowed MSB-first ladder over bits (..., W), W even (the
-    JAX package's w2 ladder; its binary ladder is not carried over):
-    acc ← 4·acc + w·P per window, w = 2·b_hi + b_lo selected from
-    precomputed {P, 2P, 3P}.  Scalars must be below 2^SCALAR_BITS;
-    unequal-add safety is the JAX package's argument (prefix < 2^252
-    before the last window)."""
-    if bits.shape[-1] % 2:
-        raise ValueError("the w2 ladder needs an even bit width")
+    JAX package's w2 ladder): acc ← 4·acc + w·P per window, w = 2·b_hi +
+    b_lo selected from precomputed {P, 2P, 3P}.  An odd width, or
+    ``HBBFT_TPU_LADDER_BINARY``, takes the binary ladder (acc ← 2·acc,
+    then + P on a set bit).  Scalars must be below 2^SCALAR_BITS;
+    unequal-add safety is the JAX package's argument (``safe_scalar``)."""
     bits = bits.to(torch.bool)
+    if bits.shape[-1] % 2 or _binary_ladder():
+        acc = infinity_like(F, P)
+        for s in range(bits.shape[-1]):
+            acc = jac_double(F, acc)
+            acc = jac_select(F, bits[..., s], jac_add(F, acc, P), acc)
+        return acc
     P2 = jac_double(F, P)
     P3 = jac_add(F, P2, P)
     acc = infinity_like(F, P)
@@ -404,6 +417,18 @@ def _scalar_mul_joint(F, bits, negs, P):
 # ---------------------------------------------------------------------------
 
 
+def safe_scalar(s: int) -> Tuple[int, bool]:
+    """Return (s', negate) with s ≡ ±s' (mod r) and s' < 2^254: the
+    classic ladders' input form.  A selected add computes acc + P with
+    acc = 2m·P for a prefix m of ≤ 253 bits; the unequal add would fail
+    only at 2m ≡ ±1 (mod r), and 2m < 2^254 < r − 1 rules both out.
+    Since r > 2^254.8, one of s, r − s is always below 2^254."""
+    s %= R
+    if not (s >> SCALAR_BITS):
+        return (s, False)
+    return (R - s, True)
+
+
 def scalars_to_bits(scalars: Sequence[int], width: int = SCALAR_BITS) -> np.ndarray:
     """(B, width) MSB-first bit matrix (host; vectorized via unpackbits)."""
     if not scalars:
@@ -463,6 +488,19 @@ def _divround(n: int, d: int) -> int:
     return (2 * n + d) // (2 * d)
 
 
+def glv_enabled() -> bool:
+    """GLV/GLS decomposition on?  Read per batch, so ``HBBFT_TPU_NO_GLV=1``
+    flips it in process; ``HBBFT_TPU_LADDER_BINARY`` also forces the
+    classic form (the binary ladder, which GLV would bypass)."""
+    return not (os.environ.get("HBBFT_TPU_NO_GLV") or _binary_ladder())
+
+
+def _classic_prep(scalars: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+    """The safe_scalar form: bits (B, SCALAR_BITS), negs (B,)."""
+    safe = [safe_scalar(s) for s in scalars]
+    return scalars_to_bits([s for s, _ in safe]), np.array([n for _, n in safe], dtype=bool)
+
+
 def glv_decompose_g1(k: int) -> List[Tuple[int, bool]]:
     """k ≡ ±k1 ± λ·k2 (mod r) with |k1|,|k2| ≤ 2^127."""
     k %= R
@@ -485,8 +523,11 @@ def gls_decompose_g2(k: int) -> List[Tuple[int, bool]]:
 
 
 def prep_g1_scalars(scalars: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
-    """Full-width G1 ladder prep → (bits, negs) in GLV form (B, 2, 128) /
-    (B, 2); the device routes on the decomposition axis."""
+    """Full-width G1 ladder prep → (bits, negs): GLV form (B, 2, 128) /
+    (B, 2) by default, the classic form (B, 254) / (B,) with GLV off.
+    The device routes on the decomposition axis, so they never alias."""
+    if not glv_enabled():
+        return _classic_prep(scalars)
     parts = [glv_decompose_g1(s) for s in scalars]
     flat = [p for pair in parts for p, _ in pair]
     bits = scalars_to_bits(flat, GLV_HALF_BITS).reshape(len(scalars), 2, GLV_HALF_BITS)
@@ -497,7 +538,10 @@ def prep_g1_scalars(scalars: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def prep_g2_scalars(scalars: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
-    """Full-width G2 ladder prep: 4-way GLS form (B, 4, 64) / (B, 4)."""
+    """Full-width G2 ladder prep: 4-way GLS form (B, 4, 64) / (B, 4), or
+    the classic form with GLV off (prep_g1_scalars note)."""
+    if not glv_enabled():
+        return _classic_prep(scalars)
     parts = [gls_decompose_g2(s) for s in scalars]
     flat = [p for quad in parts for p, _ in quad]
     bits = scalars_to_bits(flat, GLS_QUARTER_BITS).reshape(
@@ -523,7 +567,9 @@ def ladder_scan_field_muls(bits: np.ndarray, glv: bool) -> int:
         m = int(bits.shape[-2])
         wbits = 2 if m == 2 else 1
         return (width // wbits) * (wbits * _DBL_MULS + _CADD_MULS)
-    return (width // 2) * (2 * _DBL_MULS + _ADD_MULS)
+    if width % 2 == 0 and not _binary_ladder():
+        return (width // 2) * (2 * _DBL_MULS + _ADD_MULS)
+    return width * (_DBL_MULS + _ADD_MULS)
 
 
 def glv_table_field_muls(bits: np.ndarray) -> int:

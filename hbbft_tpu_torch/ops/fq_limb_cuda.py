@@ -1,7 +1,9 @@
 """The limb-field multiply and fixed-exponent power as CUDA kernels.
 
 The port of the JAX package's ``ops/fq_pallas.py``.  Two kernels, written
-by hand for Hopper in ``csrc/fq_limb.cu`` (the design note there says
+by hand for Hopper in ``csrc/fq_limb.cu`` on one team body (four threads
+a product, fold 1 as int8 tensor-core products; the power gives each lane
+a warp and deals its convolution over the warp; the design note there says
 what bounds them and how they are laid out):
 
 * ``fq_limb_mul`` replaces ``_mul_kernel`` / ``_mul_core`` — both
@@ -19,7 +21,9 @@ and carried limbs up to 257 are not all bf16-exact).  Every value is an
 exact float32 integer, so kernel and plain version agree bit for bit.
 The wrappers ``mul`` and ``pow_fixed`` run the plain version on CPU
 tensors and launch the kernel on CUDA tensors; nothing falls back from
-one to the other.  Each wrapper counts its launches in ``.launches``.
+one to the other.  Each wrapper counts its launches in ``.launches``;
+``mul`` reads a one-row operand in place (lane stride 0) and counts such
+launches in ``.broadcast_launches``.
 
 The Pallas kernel's convolution layouts (``HBBFT_TPU_CONV_MODE``: concat,
 scratch, grouped) are TPU VMEM strategies that compute identical values;
@@ -36,11 +40,19 @@ import numpy as np
 import torch
 
 from hbbft_tpu_torch.ops import fq_limb as L
-from hbbft_tpu_torch.ops.fq_rns_cuda import _exp_bits
+from hbbft_tpu_torch.ops.fq_rns_cuda import (
+    _blocks_per_sm,
+    _exp_bits,
+    _lane_operand,
+    _sms,
+    fit_per_block,
+)
 from hbbft_tpu_torch.utils import cuda_build
 
 NL = L.NLIMBS  # 50
 _SRC = "fq_limb"
+LANES_PER_WARP = 8  # the multiply's lanes per warp, a team of 4 threads each (csrc/fq_limb.cu LPW)
+MAX_WARPS = 4  # warps per block at most (csrc/fq_limb.cu MAX_WARPS)
 
 
 # -- plain versions (the Pallas kernels' stage order) -------------------------
@@ -79,10 +91,12 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(_SRC)
     if not getattr(lib, "_hbbft_ready", False):
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.fq_limb_mul.argtypes = [ptr, ptr, ptr, i, ptr]
+        lib.fq_limb_mul.argtypes = [ptr, i, ptr, i, ptr, i, i, ptr]
         lib.fq_limb_mul.restype = i
-        lib.fq_limb_pow.argtypes = [ptr, ptr, i, ptr, i, ptr]
+        lib.fq_limb_pow.argtypes = [ptr, ptr, i, ptr, i, i, ptr]
         lib.fq_limb_pow.restype = i
+        for name in ("fq_limb_mul_blocks_per_sm", "fq_limb_pow_blocks_per_sm"):
+            getattr(lib, name).restype = i
         lib.fq_limb_fold_floats.restype = i
         lib.fq_limb_read_fold.argtypes = [ptr]
         lib.fq_limb_read_fold.restype = i
@@ -122,6 +136,25 @@ def _count(fn, n: int) -> None:
     fn.widths[n.bit_length()] += 1
 
 
+def warps_per_block(n: int, sms: int, lanes_per_warp: int = LANES_PER_WARP) -> int:
+    """Warps per block for n lanes: one warp per ``lanes_per_warp`` lanes
+    (8 for the multiply, 1 for the power), the fewest per block (1, 2 or
+    4) whose grid fits on the SMs at once, so a narrow launch spreads its
+    warps over the card's SMs (the sizing policy of the RNS kernels,
+    ``fq_rns_cuda.fit_per_block``)."""
+    return fit_per_block(-(-n // lanes_per_warp), sms, MAX_WARPS)
+
+
+def mul_blocks_per_sm(device) -> int:
+    """Blocks of ``fq_limb_mul`` (4 warps) resident on one SM of the card."""
+    return _blocks_per_sm(device, _lib().fq_limb_mul_blocks_per_sm, "fq_limb_mul")
+
+
+def pow_blocks_per_sm(device) -> int:
+    """Blocks of ``fq_limb_pow`` (4 warps) resident on one SM of the card."""
+    return _blocks_per_sm(device, _lib().fq_limb_pow_blocks_per_sm, "fq_limb_pow")
+
+
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a·b mod Q over (..., 50) limb rows (broadcasting).
 
@@ -133,18 +166,22 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (a.is_cuda and a.device == b.device):
         raise ValueError(f"operands on {a.device} and {b.device}")
     shape = torch.broadcast_shapes(a.shape, b.shape)
-    a = a.expand(shape).contiguous()
-    b = b.expand(shape).contiguous()
     out = torch.empty(shape, dtype=torch.float32, device=a.device)
     n = out.numel() // NL
     if n == 0:
         return out
+    a, sa = _lane_operand(a, shape, NL)
+    b, sb = _lane_operand(b, shape, NL)
     lib = _lib()
+    warps = warps_per_block(n, _sms(a.device))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.fq_limb_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, stream)
+        rc = lib.fq_limb_mul(a.data_ptr(), sa, b.data_ptr(), sb, out.data_ptr(), n, warps,
+                             stream)
     _check(lib, rc, "fq_limb_mul")
     _count(mul, n)
+    if n > 1 and not (sa and sb):
+        mul.broadcast_launches += 1
     return out
 
 
@@ -167,10 +204,11 @@ def pow_fixed(x: torch.Tensor, exponent: int) -> torch.Tensor:
     bits_t = _BITS.get(key)
     if bits_t is None:
         bits_t = _BITS[key] = torch.tensor(bits, dtype=torch.int32, device=x.device)
+    warps = warps_per_block(n, _sms(x.device), 1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.fq_limb_pow(x.data_ptr(), bits_t.data_ptr(), len(bits), out.data_ptr(), n,
-                             stream)
+                             warps, stream)
     _check(lib, rc, "fq_limb_pow")
     _count(pow_fixed, n)
     return out
@@ -183,6 +221,7 @@ for _fn in KERNELS:
     _fn.launches = 0
     _fn.lanes = 0  # lanes over all launches (lanes / launches = mean launch width)
     _fn.widths = Counter()  # launches by width class: key b holds [2^(b-1), 2^b)
+mul.broadcast_launches = 0  # launches with a one-row operand read at lane stride 0
 
 
 def reset_launches() -> None:
@@ -190,6 +229,7 @@ def reset_launches() -> None:
         fn.launches = 0
         fn.lanes = 0
         fn.widths.clear()
+    mul.broadcast_launches = 0
 
 
 def build() -> Dict[str, float]:

@@ -264,13 +264,14 @@ def _check_rows(*ts: torch.Tensor) -> None:
             )
 
 
-def _lane_operand(t: torch.Tensor, shape) -> tuple:
-    """(rows, lane stride) of one ``mul`` operand: a single row (numel 79)
-    is read in place by every lane (stride 0); any other operand is
-    expanded to the broadcast shape and read row by row (stride 79)."""
-    if t.numel() == NL:
+def _lane_operand(t: torch.Tensor, shape, width: int = NL) -> tuple:
+    """(rows, lane stride) of one ``mul`` operand of rows ``width`` wide: a
+    single row is read in place by every lane (stride 0); any other
+    operand is expanded to the broadcast shape and read row by row
+    (stride ``width``)."""
+    if t.numel() == width:
         return t.contiguous(), 0
-    return t.expand(shape).contiguous(), NL
+    return t.expand(shape).contiguous(), width
 
 
 def mul(a: torch.Tensor, b: torch.Tensor, reduced: bool = False) -> torch.Tensor:
@@ -356,8 +357,15 @@ def pow_warps_per_block(n: int, sms: int) -> int:
     return fit_per_block(-(-n // WARP_M), sms, POW_MAX_WARPS)
 
 
+_SMS: dict = {}  # device → SMs of the card
+
+
 def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """The card's SM count, asked once per device (every launch sizes by it)."""
+    n = _SMS.get(device)
+    if n is None:
+        n = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
 
 
 def pow_fixed(x: torch.Tensor, exponent: int) -> torch.Tensor:

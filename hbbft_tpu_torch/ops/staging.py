@@ -14,7 +14,8 @@ bigint decomposition entirely.
 
 Keying is by **value** (the field integer), which is self-invalidating —
 a stale entry cannot be wrong, only dead weight — with an LRU bound
-(``DEFAULT_CAPACITY`` rows; 0 disables) so churned eras age out.  Era
+(``HBBFT_TPU_STAGE_CAP``, default ``DEFAULT_CAPACITY`` rows; 0 disables)
+so churned eras age out.  Era
 turnover additionally clears the cache outright via
 ``CryptoBackend.new_era`` so dead key material is dropped promptly
 rather than evicted lane by lane.
@@ -27,6 +28,7 @@ in the converters) happens downstream.
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 from typing import Optional, Sequence
 
@@ -35,8 +37,17 @@ import numpy as np
 from hbbft_tpu_torch.ops import fq
 
 
-#: rows held (≈ 10 MB at RNS width); 0 disables the cache
+#: rows held (≈ 10 MB at RNS width) when ``HBBFT_TPU_STAGE_CAP`` is unset
 DEFAULT_CAPACITY = 32768
+
+
+def _default_capacity() -> int:
+    """``HBBFT_TPU_STAGE_CAP`` (0 disables the cache), read when a cache
+    is made; an unparsable value keeps the default, as in the reference."""
+    try:
+        return int(os.environ.get("HBBFT_TPU_STAGE_CAP", str(DEFAULT_CAPACITY)))
+    except ValueError:
+        return DEFAULT_CAPACITY
 
 
 class StagingCache:
@@ -49,7 +60,7 @@ class StagingCache:
     """
 
     def __init__(self, capacity: Optional[int] = None, counters=None) -> None:
-        self.capacity = DEFAULT_CAPACITY if capacity is None else capacity
+        self.capacity = _default_capacity() if capacity is None else capacity
         self.counters = counters
         self._rows: "OrderedDict[int, np.ndarray]" = OrderedDict()
 

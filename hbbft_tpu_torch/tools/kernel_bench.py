@@ -20,8 +20,9 @@ and reports ms per launch (per product for the chain) and M muls/s.
 With ``--launch`` it times instead one launch of each kernel of the
 epoch path — ``fq_rns_mul``, ``miller_dbl``, ``tower_op`` (its
 ``fq12_mul``) and ``hard_exp`` at the path's mean widths, ``fq_rns_pow``
-at its narrowest and widest launches (``--launch-lanes`` picks kernels
-and widths) — each two ways: one call between two CUDA events, as
+at its narrowest and widest launches — and of the limb arm's
+``fq_limb_mul`` and ``fq_limb_pow`` (e = Q−2) at that path's mean widths
+(``--launch-lanes`` picks kernels and widths), each two ways: one call between two CUDA events, as
 ``chip_smoke.time_ms`` does (so it also counts the host's launch
 latency), and per call of ``STREAM`` back-to-back calls between two
 events (the card never waits on the host).  Only public wrappers that
@@ -70,7 +71,8 @@ FP32_PEAK_TFLOPS = 67.0  # H100 SXM, float32 outside the tensor cores, 700 W
 #: fq_rns_pow's narrowest and widest launches (no launch has its mean;
 #: 2,048 lanes on two epochs) and the top of the widest class, 4,095
 LAUNCH_LANES = {"fq_rns_mul": (191251,), "miller_dbl": (1593,), "tower_op": (796,),
-                "hard_exp": (796,), "fq_rns_pow": (1, 2048, 4095)}
+                "hard_exp": (796,), "fq_rns_pow": (1, 2048, 4095),
+                "fq_limb_mul": (35450,), "fq_limb_pow": (14,)}
 #: back-to-back calls per sample of the second per-launch timing
 STREAM = 50
 
@@ -129,6 +131,12 @@ def _launch_fn(name: str, n: int, rng, dev):
     if name == "fq_rns_pow":
         x = _rows(rng, n, nl, dev)
         return lambda: fq_rns_cuda.pow_fixed(x, Q - 2)
+    if name == "fq_limb_mul":
+        a, b = _rows(rng, n, fq_limb_cuda.NL, dev), _rows(rng, n, fq_limb_cuda.NL, dev)
+        return lambda: fq_limb_cuda.mul(a, b)
+    if name == "fq_limb_pow":
+        x = _rows(rng, n, fq_limb_cuda.NL, dev)
+        return lambda: fq_limb_cuda.pow_fixed(x, Q - 2)
     if name == "miller_dbl":
         f, r, p = (_rows(rng, c * n, nl, dev).reshape(c, n, -1) for c in (12, 6, 2))
         dbl = tower_fused_cuda.miller_dbl if cuda else tower_fused.dbl_plain

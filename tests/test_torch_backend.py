@@ -258,3 +258,96 @@ def test_adaptive_window_observes_like_the_reference():
         ref._rlc_obs_items, ref._rlc_obs_rejects,
     )
     assert port._rlc_observed_rate() == ref._rlc_observed_rate()
+
+
+# -- the reference's env switches, end to end (same graph shapes as above) ----
+
+
+def _pinned_for_width():
+    """_pinned_scalars, cut to the coefficient width the backend reads."""
+    base = _pinned_scalars()
+
+    def draw(count):
+        top = (1 << TorchBackend._rlc_bits()) - 1
+        return [r % top + 1 for r in base(count)]
+
+    return draw
+
+
+def _dec_run(world, env, window=None):
+    """verify_dec_shares on both backends under ``env``, coefficients
+    pinned; the verdicts and every counter the switches move."""
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setenv("HBBFT_TPU_NO_HOSTPIPE", "1")
+        for k, v in env.items():
+            mp.setenv(k, v)
+        mp.setattr(TpuBackend, "_rlc_scalars", staticmethod(_pinned_for_width()))
+        mp.setattr(TorchBackend, "_rlc_scalars", staticmethod(_pinned_for_width()))
+        out = {}
+        for name, backend in (("ref", TpuBackend()), ("port", TorchBackend(device="cpu"))):
+            if window is not None:
+                backend._rlc_obs_items, backend._rlc_obs_rejects = window
+            verdicts = backend.verify_dec_shares(_dec_items(world, name == "port"))
+            c = backend.counters
+            out[name] = (verdicts, c.device_dispatches, c.rlc_groups, c.rlc_adaptive_splits,
+                         c.pairing_checks, c.ladder_field_muls)
+        return out
+    finally:
+        mp.undo()
+
+
+def test_no_adaptive_rlc_run_equals_the_reference(world):
+    """HBBFT_TPU_NO_ADAPTIVE_RLC=1 with a contaminated window (cap 3 on
+    the adaptive arm, which would count a split of the group of 4): both
+    sides keep the group whole and count no split."""
+    out = _dec_run(world, {"HBBFT_TPU_NO_ADAPTIVE_RLC": "1"}, window=(100.0, 30.0))
+    assert out["port"] == out["ref"]
+    assert out["port"][0] == [True, True, True, False]
+    assert out["port"][3] == 0 and out["port"][1] == 2
+
+
+def test_rlc_bits_run_equals_the_reference(world):
+    """HBBFT_TPU_RLC_BITS=32: 32-bit coefficients on both sides, so the
+    same verdicts, dispatches and half the 64-bit ladder muls."""
+    out = _dec_run(world, {"HBBFT_TPU_RLC_BITS": "32"})
+    assert out["port"] == out["ref"]
+    assert out["port"][0] == [True, True, True, False]
+    # 16 windows of 2 doublings + 1 add, two ladders per lane, 4 items
+    assert out["port"][5] == 16 * (2 * 7 + 16) * 2 * 4
+
+
+def _ct_run(world, env, cap=None):
+    mp = pytest.MonkeyPatch()
+    try:
+        for k, v in env.items():
+            mp.setenv(k, v)
+        if cap is not None:  # the value HBBFT_TPU_PAIR_CAP gives at import
+            mp.setattr(TpuBackend, "pairing_lane_cap", cap)
+            mp.setattr(TorchBackend, "pairing_lane_cap", cap)
+        out = {}
+        for name, backend in (("ref", TpuBackend()), ("port", TorchBackend(device="cpu"))):
+            verdicts = backend.verify_ciphertexts(_ct_batch(world, name == "port"))
+            c = backend.counters
+            out[name] = (verdicts, c.device_dispatches, c.pairing_checks,
+                         c.stage_cache_hits, c.stage_cache_misses, backend._stage.capacity)
+        return out
+    finally:
+        mp.undo()
+
+
+def test_pair_cap_chunks_like_the_reference(world):
+    """A pairing cap of 2: four ciphertext checks in two chunks (each
+    padded to the 4-lane bucket) on both sides."""
+    out = _ct_run(world, {}, cap=2)
+    assert out["port"] == out["ref"]
+    assert out["port"][:3] == ([True, True, True, False], 2, 4)
+
+
+def test_stage_cap_zero_runs_like_the_reference(world):
+    """HBBFT_TPU_STAGE_CAP=0: no staging cache on either side, so no hits
+    and no misses are counted; the verdicts stand."""
+    out = _ct_run(world, {"HBBFT_TPU_STAGE_CAP": "0"})
+    assert out["port"] == out["ref"]
+    assert out["port"][3:] == (0, 0, 0)
+    assert out["port"][0] == [True, True, True, False]

@@ -246,7 +246,7 @@ def _lazy_limbs(rng, n):
     """n limb rows: canonical rows, sums of four and differences (negative
     limbs), with their values."""
     xs = [rng.randrange(Q) for _ in range(n)]
-    xs[:3] = [0, 1, Q - 1]
+    xs[: min(n, 3)] = [0, 1, Q - 1][:n]
     base = L.from_ints(xs)
     k = n // 3
     rows = np.concatenate([base[:k], base[k : 2 * k] * 4, base[:k] - base[2 * k : 3 * k],
@@ -256,7 +256,12 @@ def _lazy_limbs(rng, n):
     return rows, vals
 
 
-@pytest.mark.parametrize("n", [1, 1001, 4096])  # one lane, a ragged last block, full blocks
+#: fq_limb_mul's checked widths: one lane, around two 8-lane warps, a
+#: ragged last block, full blocks, and the limb arm's mean launch width
+LIMB_MUL_WIDTHS = (1, 15, 16, 17, 1001, 4096, 35450)
+
+
+@pytest.mark.parametrize("n", LIMB_MUL_WIDTHS)
 def test_limb_mul_kernel_equals_plain(dev, n):
     rng = random.Random(17)
     a_np, va = _lazy_limbs(rng, n)
@@ -268,13 +273,23 @@ def test_limb_mul_kernel_equals_plain(dev, n):
     assert LK.mul.launches == n0 + 1
     assert torch.equal(got, LK.mul_plain(a, b))
     assert L.to_ints(got) == [x * y % Q for x, y in zip(va, vb)]
-    five = torch.as_tensor(L.from_int(5), device=dev)  # broadcast operand
-    assert torch.equal(LK.mul(a, five), LK.mul_plain(a, five.expand_as(a)))
+    # a one-row operand on either side, read in place at lane stride 0
+    b0 = LK.mul.broadcast_launches
+    for row in (b[n // 2], b[n // 2 :][:1]):
+        assert torch.equal(LK.mul(a, row), LK.mul_plain(a, row))
+        assert torch.equal(LK.mul(row, a), LK.mul_plain(row, a))
+    assert LK.mul.broadcast_launches == b0 + (4 if n > 1 else 0)
 
 
+#: fq_limb_pow's checked widths: one lane, the limb arm's mean launch
+#: width (14), a few warps, and the top of a wide launch
+LIMB_POW_WIDTHS = (1, 14, 150, 4095)
+
+
+@pytest.mark.parametrize("n", LIMB_POW_WIDTHS)
 @pytest.mark.parametrize("exponent", [1, 2, 0b1011010111, Q - 2])
-def test_limb_pow_kernel_equals_plain(dev, exponent):
-    rows, vals = _lazy_limbs(random.Random(18), 150)
+def test_limb_pow_kernel_equals_plain(dev, exponent, n):
+    rows, vals = _lazy_limbs(random.Random(18), n)
     x = torch.as_tensor(rows, device=dev)
     got = LK.pow_fixed(x, exponent)
     torch.cuda.synchronize()

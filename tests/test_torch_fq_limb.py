@@ -239,12 +239,28 @@ def test_kernel_bench_launch_times_on_the_cpu(capsys):
     """``--launch``: one row per kernel with both timings, every line
     naming the device."""
     res = kernel_bench.main(["--device", "cpu", "--launch", "--launch-lanes",
-                             "fq_rns_mul=5,miller_dbl=2"])
+                             "fq_rns_mul=5,miller_dbl=2,fq_limb_mul=5"])
     out = capsys.readouterr().out
     assert [(r["kernel"], r["lanes"]) for r in res["launch"]] == [
-        ("fq_rns_mul", 5), ("miller_dbl", 2)]
+        ("fq_rns_mul", 5), ("miller_dbl", 2), ("fq_limb_mul", 5)]
     assert all(r["single"] > 0 and r["stream"] > 0 for r in res["launch"])
     assert "not a device metric" in res["card"]
-    assert out.count("back to back") == 2
+    assert out.count("back to back") == 3
     assert all(res["card"] in line for line in out.splitlines()[:-1])
+
+
+def test_kernel_bench_launches_the_limb_kernels():
+    """``--launch``'s limb names call the limb wrappers (their plain
+    versions on the CPU): fq_limb_mul on two rows, fq_limb_pow at Q−2;
+    both are in the default widths, at the limb arm's mean launch widths."""
+    rng = np.random.default_rng(3)
+    cpu = torch.device("cpu")
+    got = kernel_bench._launch_fn("fq_limb_mul", 3, rng, cpu)()
+    assert got.shape == (3, JL.NLIMBS) and got.dtype == torch.float32
+    rng = np.random.default_rng(4)
+    x = kernel_bench._rows(rng, 1, JL.NLIMBS, cpu)
+    got = kernel_bench._launch_fn("fq_limb_pow", 1, np.random.default_rng(4), cpu)()
+    assert TL.to_ints(got) == [pow(TL.to_int(x[0]), Q - 2, Q)]
+    assert kernel_bench.LAUNCH_LANES["fq_limb_mul"] == (35450,)
+    assert kernel_bench.LAUNCH_LANES["fq_limb_pow"] == (14,)
 
