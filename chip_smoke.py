@@ -84,15 +84,16 @@ from contextlib import contextmanager, nullcontext
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): HBM
-# bandwidth, bf16 tensor cores, float32 outside the tensor cores.
+# bandwidth, int8 tensor cores (every tensor-core product of the port is an
+# s8 x s8 mma.sync), float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
-BF16_TC_FLOPS = 989e12
+INT8_TC_OPS = 1979e12
 FP32_FLOPS = 67e12
 
 # The least work one Montgomery product needs per lane (the bound below):
-# * the two base extensions as bf16 tensor-core products — the 6-bit/5-bit
-#   planes are exact in bf16, as the TPU kernel runs them: 2 extensions x
-#   4 plane products x (40 x 40) multiply-adds x 2 flops;
+# * the two base extensions as int8 tensor-core products, as mul_warp
+#   runs them on the 6-bit/5-bit planes (csrc/fq_rns_core.cuh): 2
+#   extensions x 4 plane products x (40 x 40) multiply-adds x 2 ops;
 # * the stage-wise reductions as float32 work, counted from the stages of
 #   fq_rns_pallas._mul_core (one op per mul, add, floor or compare; a
 #   loose reduction is 4, an exact one 10): lane product and offset 79x6,
@@ -100,7 +101,7 @@ FP32_FLOPS = 67e12
 #   40x29, r2r 40x7, xi 39x11, extension-2 recombination 40x23, delta 12,
 #   r1 39x6; the input renormalisation adds 79x2x4 when not `reduced`;
 # * the bytes: each operand row read once, the result row written once.
-MUL_TC_FLOPS = 2 * 4 * 40 * 40 * 2
+MUL_TC_OPS = 2 * 4 * 40 * 40 * 2
 MUL_EW_OPS_REDUCED = (79 * 6 + 39 * 11 + 2 * 39 * 4 + 40 * 29 + 40 * 7 + 39 * 11
                       + 40 * 23 + 12 + 39 * 6)
 MUL_EW_OPS = MUL_EW_OPS_REDUCED + 79 * 2 * 4
@@ -118,7 +119,8 @@ POW_LANES = 4096
 EPOCHS = 2
 PAYLOAD = 128  # bytes per contribution (run_epochs' default)
 #: widths the fused tower kernels are checked at besides the main path's
-#: mean: one lane, and 1001 lanes (three lanes per block, the last partial)
+#: mean: one lane, and 1001 lanes (two lanes per block on the H100, the
+#: last block one lane)
 TOWER_WIDTHS = (1, 1001)
 #: widths fq_rns_mul is checked at besides the main path's mean: one lane,
 #: around two 64-lane blocks (4 warps x 16), a ragged persistent grid and
@@ -138,9 +140,11 @@ HARD_WIDTHS = (1, 2, 3, 37)
 POW_WIDTHS = (1, 15, 16, 17)
 #: widths the limb kernels and the RNS chain are checked at besides their
 #: path's mean: one lane, a ragged last warp (8 lanes a warp for the limb
-#: kernels; a partial 128-lane block for the chain), full blocks
+#: kernels; a ragged group of 16 lanes for the chain), full blocks; the
+#: chain's widths take each of its block sizes on the H100 (1, 2 and 4
+#: warps: 16,385 lanes are 1,025 groups, more than its 792 resident blocks)
 LIMB_WIDTHS = (1, 1001, 4096)
-CHAIN_WIDTHS = (1, 1001, 65536)
+CHAIN_WIDTHS = (1, 1001, 16385, 65536)
 CHAIN_CHECK = 8  # products per checked chain launch
 #: the limb arm's share verifies: the stacked-arm pass's 2·N·(N−1) items
 LIMB_ARM_ITEMS = 2 * N * (N - 1)
@@ -156,22 +160,23 @@ BENCH_KERNELS = ("fq_rns_chain", "fma_probe")
 # limbs is 5(n-1)+1): one carried product is the 50x50 convolution 2*2500,
 # carry3 over 99 limbs 3*491, carry3 over 50 limbs 3*246 twice (float32
 # operations), and the two folds, fold 1 (51 rows into 50 limbs) and fold 2
-# (2 rows), counted as tensor-core flops (2*50*51 + 2*50*2), as the RNS
-# extensions are; a multiply adds carry3 on both operands.  A row is 50
-# limbs of 4 bytes.
+# (2 rows), counted as int8 tensor-core operations (2*50*51 + 2*50*2), as
+# the RNS extensions are; a multiply adds carry3 on both operands.  A row
+# is 50 limbs of 4 bytes.
 LIMB_CARRY3_50 = 3 * (5 * 49 + 1)
 LIMB_CORE_OPS = 2 * 2500 + 3 * (5 * 98 + 1) + 2 * LIMB_CARRY3_50
-LIMB_CORE_TC_FLOPS = 2 * 50 * 51 + 2 * 50 * 2
+LIMB_CORE_TC_OPS = 2 * 50 * 51 + 2 * 50 * 2
 LIMB_MUL_OPS = LIMB_CORE_OPS + 2 * LIMB_CARRY3_50
 LIMB_ROW_BYTES = 50 * 4
 
 
-def roofline(nbytes: float, fp32_ops: float, tc_flops: float = 0.0) -> tuple:
-    """(bound_ms, bound_by): the larger of the time to move ``nbytes``
-    and the time of the operations (bf16 tensor-core flops plus float32
-    operations at their peaks)."""
+def roofline(nbytes: float, fp32_ops: float, tc_ops: float = 0.0) -> tuple:
+    """(bound_ms, bound_by): the largest of the time to move ``nbytes``,
+    the time of the int8 tensor-core operations and the time of the
+    float32 operations, each at its peak (the tensor cores and the float32
+    pipe run at once, so the operations take the longer of the two)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = tc_flops / BF16_TC_FLOPS + fp32_ops / FP32_FLOPS
+    t_ops = max(tc_ops / INT8_TC_OPS, fp32_ops / FP32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -179,7 +184,7 @@ def bound(lanes: int, products: int, ew_ops: int, rows_moved: int) -> tuple:
     """(bound_ms, bound_by) of ``products`` Montgomery products on each of
     ``lanes`` lanes that move ``rows_moved`` residue rows per lane."""
     return roofline(lanes * rows_moved * ROW_BYTES, lanes * ew_ops,
-                    lanes * products * MUL_TC_FLOPS)
+                    lanes * products * MUL_TC_OPS)
 
 
 def log(*parts) -> None:
@@ -327,12 +332,18 @@ def check_limb_kernels(dev, rng, widths, errs: dict) -> None:
 
 def check_chain_kernel(dev, rng, widths, errs: dict) -> None:
     """The RNS chain kernel (CHAIN_CHECK products per launch) against its
-    plain version at each width, and samples against Python ints."""
+    plain version at each width, and samples against Python ints; the
+    widths must take every block size (1, 2 and 4 warps) on this card."""
     import torch
 
     from hbbft_tpu_torch.crypto.field import Q
     from hbbft_tpu_torch.ops import fq_rns as R, fq_rns_cuda as K
 
+    resident = K.chain_blocks_per_sm(dev) * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    warps = {n: K.group_warps_per_block(n, resident) for n in widths}
+    if set(warps.values()) != {1, 2, 4}:
+        raise AssertionError(f"the chain's widths take {warps} warps a block, not 1, 2 and 4")
     for n in widths:
         a_np, va = lazy_rows(rng, n, R)
         b_np, vb = lazy_rows(rng, n, R)
@@ -341,7 +352,8 @@ def check_chain_kernel(dev, rng, widths, errs: dict) -> None:
         vb = vb[::-1]
         got = K.mul_chain(a, b, CHAIN_CHECK)
         errs["fq_rns_chain"] = max(errs.get("fq_rns_chain", 0.0), same(
-            f"fq_rns_chain n={CHAIN_CHECK}", got, K.mul_chain_plain(a, b, CHAIN_CHECK)))
+            f"fq_rns_chain n={CHAIN_CHECK} ({warps[n]} warps a block)", got,
+            K.mul_chain_plain(a, b, CHAIN_CHECK)))
         want = [x * pow(y, CHAIN_CHECK, Q) % Q for x, y in zip(va[:64], vb[:64])]
         if R.to_ints(got[:64]) != want:
             raise AssertionError("fq_rns_chain disagrees with Python ints mod Q")
@@ -884,7 +896,7 @@ def limb_kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list:
               "library_ms": None, "path": "limb arm"}
     rows = []
     bound_ms, bound_by = roofline(n_mul * 3 * LIMB_ROW_BYTES, n_mul * LIMB_MUL_OPS,
-                                  n_mul * LIMB_CORE_TC_FLOPS)
+                                  n_mul * LIMB_CORE_TC_OPS)
     rows.append({
         "name": "fq_limb_mul", **common, "replaces": "hbbft_tpu/ops/fq_pallas.py:182",
         "launches": launches["fq_limb_mul"], "max_abs_err": errs["fq_limb_mul"],
@@ -895,7 +907,7 @@ def limb_kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list:
     # not count
     bound_ms, bound_by = roofline(n_pow * 2 * LIMB_ROW_BYTES,
                                   n_pow * (products * LIMB_CORE_OPS + LIMB_CARRY3_50),
-                                  n_pow * products * LIMB_CORE_TC_FLOPS)
+                                  n_pow * products * LIMB_CORE_TC_OPS)
     rows.append({
         "name": "fq_limb_pow", **common, "replaces": "hbbft_tpu/ops/fq_pallas.py:255",
         "launches": launches["fq_limb_pow"], "max_abs_err": errs["fq_limb_pow"],
@@ -1101,16 +1113,7 @@ def main(argv=None) -> int:
             mod.build()
         secs["build"] = time.perf_counter() - t
         log(f"build: {built} ({secs['build']:.2f} s)")
-        for name in sources:
-            for line in cuda_build.build_log(name).splitlines():
-                if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
-                    log(f"  ptxas {name}:", line.strip())
-        log(f"occupancy [{card}]: fq_rns_mul {K.mul_blocks_per_sm(dev)} blocks of "
-            f"128 threads per SM; fq_rns_pow {K.pow_blocks_per_sm(dev)} blocks of 128 "
-            f"threads per SM; miller_dbl {TK.resident_blocks(dev, 'miller_dbl')} and "
-            f"hard_exp {TK.resident_blocks(dev, 'hard_exp')} blocks of 128 threads "
-            f"resident on the card; fq_limb_mul {LK.mul_blocks_per_sm(dev)} and fq_limb_pow "
-            f"{LK.pow_blocks_per_sm(dev)} blocks of 128 threads per SM")
+        result["build"] = kernel_bench.build_report(dev, log, sources)
 
         t = time.perf_counter()
         errs = phase_kernels(dev, rng, MUL_LANES, POW_LANES)

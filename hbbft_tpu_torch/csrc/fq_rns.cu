@@ -1,5 +1,6 @@
-// Full-RNS Montgomery multiply and fixed-exponent power for BLS12-381 Fq,
-// written by hand for Hopper (sm_90a).
+// Full-RNS Montgomery multiply, fixed-exponent power and product chain for
+// BLS12-381 Fq, written by hand for Hopper (sm_90a), all three on the one
+// warp-wide body `mul_warp` of csrc/fq_rns_core.cuh.
 //
 // Replaces the JAX package's Pallas TPU kernels in hbbft_tpu/ops/fq_rns_pallas.py:
 //   fq_rns_mul_kernel  <- _mul_kernel (body _mul_core), pallas_call at :295
@@ -69,44 +70,37 @@
 // order orders the round trip through L2; a variant that kept both row
 // sets in shared memory measured no faster on the H100: PERF.md).  Blocks
 // hold 1, 2 or 4 warps, the fewest whose grid fits on the card's SMs at
-// once (the wrapper picks it: ops/fq_rns_cuda.py pow_warps_per_block), so
+// once (the wrapper picks it: ops/fq_rns_cuda.py group_warps_per_block), so
 // a narrow launch spreads its warps over the SMs instead of sharing one
 // SM's shared-memory pipe.  A pass alone takes ~5.7 us (one warp, one
 // lane: PERF.md), the latency of its dependent steps.
 //
-// fq_rns_chain keeps the first design: a block owns TPB consecutive lanes,
-// copies its TPB x 79 slab into shared memory transposed to
-// [residue][lane] (stride TPB+1 against bank conflicts), and each thread
-// runs `mul_core` for ONE lane down its own column, chaining its products
-// without leaving shared memory.  Per product a lane does 9,360 float32
-// multiply-adds (both extensions on the float32 pipe) plus ~400 ops of
-// reductions, so it is bound by operations.
+// fq_rns_chain runs the power's design: n chained products x <- x*b per
+// lane (the kernel bench's ceiling probe: both operands renormalized once,
+// then every product `reduced`).  Each warp owns one group of WARP_M = 16
+// lanes for the whole chain, writes loose(b) once to a per-launch scratch
+// and loose(a) to `out`, and calls `mul_warp` n times on those rows (out
+// is the accumulator).  The chain moves no device-memory bytes per product
+// beyond the rows' round trip through L2, so at the bench's widths (4k to
+// 256k lanes) it is bound like fq_rns_mul without the HBM traffic: by the
+// latency of the warp passes the SM's warps overlap.  Blocks hold 1, 2 or
+// 4 warps, the fewest whose grid fits the blocks the card holds at once
+// (the occupancy query's blocks per SM x SMs; ops/fq_rns_cuda.py
+// group_warps_per_block: the one sizing policy, fit_per_block, of every
+// warp-body kernel), and __launch_bounds__(128, 6) lets 24 warps share an
+// SM, as fq_rns_mul's do (ptxas: 78 registers, no spills).  Measured on an
+// NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md), per launch of 200 products
+// back to back: 6.41-6.45 ms at 87,040 lanes and 1.34 ms at 4,096 (the
+// first design, a thread a lane on the float32 pipe: 20.15 and 6.05); 2.8 G
+// products/s at 262,144 lanes, against fq_rns_mul's 1.69 as separate
+// launches.  Two variants measured slower in the same runs and were not
+// kept: the group's acc and b rows in shared memory (3 blocks an SM: 6.92
+// ms at 87,040 lanes) and 4 blocks an SM (84 registers: 6.68 ms); at
+// 4,096 lanes all three were within 1%.
 //
 // Exactness: see csrc/fq_rns_core.cuh.  Compile without --use_fast_math.
 
 #include "fq_rns_core.cuh"
-
-#define TPB 128        // lanes (threads) per block
-#define LD (TPB + 1)   // shared-memory row stride of a transposed tile
-
-#define SMEM_BYTES ((N_CONSTS + 2 * NL * LD) * 4)
-
-// Block-cooperative copies between a (n, 79) global slab and a tile.
-__device__ __forceinline__ void load_tile(float* T, const float* g, int cnt) {
-  for (int k = threadIdx.x; k < TPB * NL; k += TPB) {
-    int lane = k / NL;
-    int row = k - lane * NL;
-    T[row * LD + lane] = lane < cnt ? g[k] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void store_tile(float* g, const float* T, int cnt) {
-  for (int k = threadIdx.x; k < cnt * NL; k += TPB) {
-    int lane = k / NL;
-    int row = k - lane * NL;
-    g[k] = T[row * LD + lane];
-  }
-}
 
 #define MUL_WARPS 4
 #define MUL_TPB (32 * MUL_WARPS)
@@ -133,12 +127,25 @@ fq_rns_mul_kernel(const float* __restrict__ a, int sa, const float* __restrict__
   }
 }
 
-#define POW_MAX_WARPS 4
-#define POW_SMEM (TC_SMEM_BYTES + POW_MAX_WARPS * WARP_TILE * 4)
+// fq_rns_pow and fq_rns_chain: 1, 2 or 4 warps a block, one lane group each.
+#define GROUP_MAX_WARPS 4
+#define GROUP_SMEM (TC_SMEM_BYTES + GROUP_MAX_WARPS * WARP_TILE * 4)
+
+// dst <- loose(src) for one row, residue r by lane r % 32: the lane that
+// reads it back in mul_warp's staging, so program order orders the round
+// trip.  S: the shared constants.
+__device__ __forceinline__ void loose_row(float* dst, const float* src, const float* S,
+                                          int lane) {
+#pragma unroll
+  for (int rr = 0; rr < 3; ++rr) {
+    const int r = lane + 32 * rr;
+    if (r < NL) dst[r] = loose_w(src[r], S[OFF_P + r], S[OFF_IP + r]);
+  }
+}
 
 // Warp w of block b owns lanes [16g, 16g + 16) for g = b*warps + w; base
 // is a (n, 79) scratch the kernel fills with loose(x).
-__global__ void __launch_bounds__(32 * POW_MAX_WARPS, 4)
+__global__ void __launch_bounds__(32 * GROUP_MAX_WARPS, 4)
 fq_rns_pow_kernel(const float* __restrict__ x, const int* __restrict__ bits, int nbits,
                   float* __restrict__ out, float* __restrict__ base, int n,
                   const float* __restrict__ kc, const int* __restrict__ kt) {
@@ -151,19 +158,12 @@ fq_rns_pow_kernel(const float* __restrict__ x, const int* __restrict__ bits, int
   float* T = smem + NV + TC_WORDS + warp * WARP_TILE;
   const int cnt = (int)min((long)WARP_M, (long)n - l0);
 
-  // base = acc = loose(x), row by row, residue r by lane r % 32
+  // base = acc = loose(x)
 #pragma unroll 1
   for (int m = 0; m < cnt; ++m) {
     const long row = (l0 + m) * NL;
-#pragma unroll
-    for (int rr = 0; rr < 3; ++rr) {
-      const int r = lane + 32 * rr;
-      if (r < NL) {
-        const float v = mod_loose(x[row + r], smem[VX(OFF_P) + r], smem[VX(OFF_IP) + r]);
-        base[row + r] = v;
-        out[row + r] = v;
-      }
-    }
+    loose_row(base + row, x + row, smem, lane);
+    loose_row(out + row, x + row, smem, lane);
   }
 
   // MSB implicit: the accumulator starts at the base.  Then, for each
@@ -188,30 +188,36 @@ fq_rns_pow_kernel(const float* __restrict__ x, const int* __restrict__ bits, int
   }
 }
 
-__global__ void __launch_bounds__(TPB)
+// Warp w of block b owns lanes [16g, 16g + 16) for g = b*warps + w, as in
+// fq_rns_pow_kernel; bs is a (n, 79) scratch the kernel fills with loose(b).
+__global__ void __launch_bounds__(32 * GROUP_MAX_WARPS, 6)
 fq_rns_chain_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                    float* __restrict__ out, int n, int nmul,
-                    const float* __restrict__ kc) {
-  extern __shared__ float smem[];
-  float* K = smem;
-  float* A = K + N_CONSTS;  // x
-  float* B = A + NL * LD;   // b
-  const long base = (long)blockIdx.x * TPB;
-  const int cnt = (int)min((long)TPB, (long)n - base);
-  const int t = threadIdx.x;
-  load_consts(K, kc);
-  load_tile(A, a + base * NL, cnt);
-  load_tile(B, b + base * NL, cnt);
+                    float* __restrict__ out, float* __restrict__ bs, int n, int nmul,
+                    const float* __restrict__ kc, const int* __restrict__ kt) {
+  extern __shared__ __align__(16) float smem[];
+  load_tc_consts(smem, kc, kt);
   __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long l0 = ((long)blockIdx.x * (blockDim.x >> 5) + warp) * WARP_M;
+  if (l0 >= n) return;  // warp-uniform; no barrier follows
+  float* T = smem + NV + TC_WORDS + warp * WARP_TILE;
+  const int cnt = (int)min((long)WARP_M, (long)n - l0);
+
+  // acc = loose(a) in out, loose(b) in bs
 #pragma unroll 1
-  for (int r = 0; r < NL; ++r) {
-    A[r * LD + t] = mod_loose(A[r * LD + t], K[OFF_P + r], K[OFF_IP + r]);
-    B[r * LD + t] = mod_loose(B[r * LD + t], K[OFF_P + r], K[OFF_IP + r]);
+  for (int m = 0; m < cnt; ++m) {
+    const long row = (l0 + m) * NL;
+    loose_row(out + row, a + row, smem, lane);
+    loose_row(bs + row, b + row, smem, lane);
   }
+
+  // nmul products acc <- acc * b in place; padding lanes re-read the
+  // group's last row and store nothing.
+  const bool valid = lane < cnt;
+  const long lr = (l0 + (valid ? lane : cnt - 1)) * NL;
+  float* acc = out + lr;
 #pragma unroll 1
-  for (int i = 0; i < nmul; ++i) mul_core(A + t, LD, B + t, LD, A + t, LD, true, K);
-  __syncthreads();
-  store_tile(out + base * NL, A, cnt);
+  for (int i = 0; i < nmul; ++i) mul_warp(T, smem, acc, bs + lr, acc, valid, true, lane);
 }
 
 // Launch set-up, once per process and device (launch_setup).
@@ -222,7 +228,11 @@ static const LaunchSetup& mul_setup() {
 }
 
 static const LaunchSetup& pow_setup() {
-  return launch_setup(g_pow, fq_rns_pow_kernel, 32 * POW_MAX_WARPS, POW_SMEM);
+  return launch_setup(g_pow, fq_rns_pow_kernel, 32 * GROUP_MAX_WARPS, GROUP_SMEM);
+}
+
+static const LaunchSetup& chain_setup() {
+  return launch_setup(g_chain, fq_rns_chain_kernel, 32 * GROUP_MAX_WARPS, GROUP_SMEM);
 }
 
 extern "C" {
@@ -243,6 +253,12 @@ int fq_rns_pow_blocks_per_sm(void) {
   return s.rc ? -s.rc : s.per_sm;
 }
 
+// The same for fq_rns_chain_kernel at its widest block (4 warps).
+int fq_rns_chain_blocks_per_sm(void) {
+  const LaunchSetup& s = chain_setup();
+  return s.rc ? -s.rc : s.per_sm;
+}
+
 // Each launcher returns cudaGetLastError() after its launch (0 = launched).
 int fq_rns_mul(const float* a, int sa, const float* b, int sb, float* out, int n, int reduced,
                const float* kc, const int* kt, void* stream) {
@@ -260,7 +276,7 @@ int fq_rns_mul(const float* a, int sa, const float* b, int sb, float* out, int n
 int fq_rns_pow(const float* x, const int* bits, int nbits, float* out, float* base, int n,
                int warps, const float* kc, const int* kt, void* stream) {
   if (n <= 0) return 0;
-  if (warps < 1 || warps > POW_MAX_WARPS) return (int)cudaErrorInvalidValue;
+  if (warps < 1 || warps > GROUP_MAX_WARPS) return (int)cudaErrorInvalidValue;
   const int rc = pow_setup().rc;
   if (rc) return rc;
   const long groups = ((long)n + WARP_M - 1) / WARP_M;
@@ -271,14 +287,19 @@ int fq_rns_pow(const float* x, const int* bits, int nbits, float* out, float* ba
   return (int)cudaGetLastError();
 }
 
-int fq_rns_chain(const float* a, const float* b, float* out, int n, int nmul,
-                 const float* kc, void* stream) {
+// warps: warps per block (1, 2 or 4), one 16-lane group each; bs: a (n, 79)
+// scratch.
+int fq_rns_chain(const float* a, const float* b, float* out, float* bs, int n, int nmul,
+                 int warps, const float* kc, const int* kt, void* stream) {
   if (n <= 0) return 0;
-  const int rc = launch_setup(g_chain, fq_rns_chain_kernel, TPB, SMEM_BYTES).rc;
+  if (warps < 1 || warps > GROUP_MAX_WARPS) return (int)cudaErrorInvalidValue;
+  const int rc = chain_setup().rc;
   if (rc) return rc;
-  unsigned grid = (unsigned)((n + TPB - 1) / TPB);
-  fq_rns_chain_kernel<<<grid, TPB, SMEM_BYTES, (cudaStream_t)stream>>>(
-      a, b, out, n, nmul, kc);
+  const long groups = ((long)n + WARP_M - 1) / WARP_M;
+  const unsigned grid = (unsigned)((groups + warps - 1) / warps);
+  const int smem = TC_SMEM_BYTES + warps * WARP_TILE * 4;
+  fq_rns_chain_kernel<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(a, b, out, bs, n, nmul,
+                                                                       kc, kt);
   return (int)cudaGetLastError();
 }
 

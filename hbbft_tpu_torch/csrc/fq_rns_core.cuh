@@ -1,20 +1,29 @@
-// The RNS Montgomery bodies on the card: the constant layout, the two lane
-// reductions, the per-thread body `mul_core` and the warp-wide tensor-core
-// body `mul_warp`, shared by csrc/fq_rns.cu (the multiply, power and chain
-// kernels) and csrc/tower_fused.cu (the fused tower kernels).
+// The RNS Montgomery body on the card: the constant layout and the
+// warp-wide tensor-core body `mul_warp`, shared by csrc/fq_rns.cu (the
+// multiply, power and chain kernels) and csrc/tower_fused.cu (the fused
+// tower kernels).  Every Fq product of every RNS kernel runs here.  The
+// kernels are sized by one policy (ops/fq_rns_cuda.py fit_per_block): the
+// fewest warps or lanes a block whose grid fits at once, against the
+// blocks the card holds (the kernel's occupancy query: fq_rns_chain and
+// the tower kernels) or its SMs (fq_rns_pow, which spreads a narrow launch
+// an SM a block); fq_rns_mul runs a persistent grid of the blocks the card
+// holds.  Measured on an
+// NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md): one warp's pass alone takes
+// ~5.7 us (fq_rns_pow at 1 lane); the passes of 24 warps an SM overlap to
+// 2.8 G products/s (fq_rns_chain at 262,144 lanes).
 //
-// Both are ports of `_mul_core` in hbbft_tpu/ops/fq_rns_pallas.py and
-// compute the same float32 values bit for bit.
+// It is a port of `_mul_core` in hbbft_tpu/ops/fq_rns_pallas.py and
+// computes the same float32 values bit for bit.
 //
 // Exactness.  Every intermediate is an integer below 2^24 in magnitude (the
 // bounds are derived in hbbft_tpu/ops/fq_rns.py and fq_rns_pallas.py):
 //  * lane products |a*b| < 4p^2 < 2^24 for operands in (-p, 2p);
-//  * first extension: sum_i sigma_i*E_lo < 39*2047*63 < 2^22.3 and the E_hi
-//    sum below that, so any summation order and any FMA contraction is
-//    exact; its result is the canonical residue, equal to the TPU kernel's;
+//  * the extensions' plane partial sums are below 39*63*63*2 < 2^19 (see
+//    below), exact in any summation order; the first extension's result
+//    is the canonical residue, equal to the TPU kernel's;
 //  * second extension: the TPU kernel's three partial sums (ll, lh+hl, hh)
 //    are kept separately because its LOOSE reductions make the result depend
-//    on them, each below 2^18;
+//    on them;
 //  * floor(x * invp) uses invp = 1/p rounded to float32 on the host exactly
 //    as the TPU kernel's constants, and the product is rounded on its own
 //    (__fmul_rn), never fused into a neighbouring add.
@@ -31,10 +40,9 @@
 
 // Offsets (in floats) into the packed constant buffer built by
 // hbbft_tpu_torch/ops/fq_rns_cuda.py (_pack_kernel_consts); both sides
-// check the total length at load.
-#define OFF_E1 0                        // float2 [NE][NB]: (lo, hi) of E1[i][j] at [j][i]
-#define OFF_E2 (OFF_E1 + 2 * NE * NB)   // float2 [NE][NB]: (lo, hi) of E2[i][j] at [j][i]
-#define OFF_P (OFF_E2 + 2 * NE * NB)    // [NL] moduli
+// check the total length at load.  The extension matrices are not in it:
+// the body reads them as int8 planes (load_tc_consts).
+#define OFF_P 0                         // [NL] moduli
 #define OFF_IP (OFF_P + NL)             // [NL] float32 1/p
 #define OFF_XOFF (OFF_IP + NL)          // [NL] sign offset residues
 #define OFF_SIGC (OFF_XOFF + NL)        // [NB] fused sigma constants (B1)
@@ -47,128 +55,10 @@
 #define OFF_M2INVR (OFF_M2B1 + NB)      // [1] M2^-1 mod m_r
 #define N_CONSTS (OFF_M2INVR + 2)       // padded to an even count
 
-__device__ __forceinline__ float mod_loose(float x, float p, float ip) {
-  // one-pass reduction to (-p, 2p); floor(..)*p is an exact integer
-  return x - floorf(__fmul_rn(x, ip)) * p;
-}
-
-__device__ __forceinline__ float mod_lanes(float x, float p, float ip) {
-  // exact reduction to [0, p), written as the reference writes it
-  x = x - floorf(__fmul_rn(x, ip)) * p;
-  x = x - p * (float)(x >= p);
-  x = x + p * (float)(x < 0.f);
-  return x;
-}
-
-// One Montgomery product for one lane: O <- A*B*M1^-1.  Residue r of an
-// operand lies at A[r*sa] (B[r*sb], O[r*so]), so the same body runs on a
-// transposed shared-memory tile (stride = tile width) and on a lane row in
-// device memory (stride 1).  O may alias A or B (same stride): every
-// residue of an input is read before the output row that shares it is
-// written.  The B2 + m_r part of x is parked in O's own rows.  `reduced`
-// skips the input renormalization (both operands already have lanes in
-// (-p, 2p), as every output of this function does).
-__device__ __forceinline__ void mul_core(const float* A, int sa, const float* B,
-                                         int sb, float* O, int so, bool reduced,
-                                         const float* K) {
-  const float* P = K + OFF_P;
-  const float* IP = K + OFF_IP;
-  const float* XOFF = K + OFF_XOFF;
-
-  // x = loose(a*b) + offset, lanes in (-p, 3p); sigma (B1) stays in registers.
-  float sig[NB];
-#pragma unroll
-  for (int i = 0; i < NB; ++i) {
-    float a = A[i * sa];
-    float b = B[i * sb];
-    if (!reduced) {
-      a = mod_loose(a, P[i], IP[i]);
-      b = mod_loose(b, P[i], IP[i]);
-    }
-    float x = mod_loose(a * b, P[i], IP[i]) + XOFF[i];
-    sig[i] = mod_lanes(x * K[OFF_SIGC + i], P[i], IP[i]);
-  }
-#pragma unroll
-  for (int j = NB; j < NL; ++j) {
-    float a = A[j * sa];
-    float b = B[j * sb];
-    if (!reduced) {
-      a = mod_loose(a, P[j], IP[j]);
-      b = mod_loose(b, P[j], IP[j]);
-    }
-    O[j * so] = mod_loose(a * b, P[j], IP[j]) + XOFF[j];
-  }
-
-  // Extension 1 (B1 -> B2 + m_r), canonical q-hat, then the fused
-  // r = x*M1^-1 + q-hat*(Q*M1^-1), one loose reduction, written in place.
-  const float2* E1 = reinterpret_cast<const float2*>(K + OFF_E1);
-#pragma unroll 1
-  for (int j = 0; j < NE; ++j) {
-    const float2* e = E1 + j * NB;
-    float slo = 0.f, shi = 0.f;
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      float2 w = e[i];
-      slo = fmaf(sig[i], w.x, slo);
-      shi = fmaf(sig[i], w.y, shi);
-    }
-    const float pj = P[NB + j], ipj = IP[NB + j];
-    float qh = mod_lanes(slo + 64.f * mod_lanes(shi, pj, ipj), pj, ipj);
-    float x2 = O[(NB + j) * so];
-    O[(NB + j) * so] =
-        mod_loose(x2 * K[OFF_M1INV + j] + qh * K[OFF_QM1INV + j], pj, ipj);
-  }
-
-  // xi over B2, split into 6-bit lo and 5-bit hi planes.
-  float vlo[NB], vhi[NB];
-#pragma unroll
-  for (int i = 0; i < NB; ++i) {
-    float r = O[(NB + i) * so];
-    float xi = mod_lanes(r * K[OFF_W2INV + i], P[NB + i], IP[NB + i]);
-    vhi[i] = floorf(xi * (1.f / 64.f));
-    vlo[i] = xi - 64.f * vhi[i];
-  }
-
-  // Extension 2 (B2 -> B1 + m_r) with the reference's partial sums:
-  // ll + 64*loose(lh + hl) + 4096*canonical(hh), loose result.
-  const float2* E2 = reinterpret_cast<const float2*>(K + OFF_E2);
-  auto ext2 = [&](int j) -> float {
-    const float2* e = E2 + j * NB;
-    float ll = 0.f, mid = 0.f, hh = 0.f;
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      float2 w = e[i];
-      ll = fmaf(vlo[i], w.x, ll);
-      mid = fmaf(vhi[i], w.x, mid);
-      mid = fmaf(vlo[i], w.y, mid);
-      hh = fmaf(vhi[i], w.y, hh);
-    }
-    const float pj = K[OFF_PB1R + j], ipj = K[OFF_IPB1R + j];
-    float out = ll + 64.f * mod_loose(mid, pj, ipj) + 4096.f * mod_lanes(hh, pj, ipj);
-    return mod_loose(out, pj, ipj);
-  };
-
-  // Shenoy-Kumaresan correction from the m_r row (output j = NB).
-  const float raw_mr = ext2(NB);
-  const float r_mr = O[(NL - 1) * so];
-  const float delta =
-      mod_lanes((raw_mr - r_mr) * K[OFF_M2INVR], 256.f, 1.f / 256.f);
-#pragma unroll 1
-  for (int j = 0; j < NB; ++j) {
-    float raw = ext2(j);
-    O[j * so] = mod_loose(raw - delta * K[OFF_M2B1 + j], P[j], IP[j]);
-  }
-}
-
-// Copy the packed constants into shared memory (block-cooperative).
-__device__ __forceinline__ void load_consts(float* K, const float* kc) {
-  for (int k = threadIdx.x; k < N_CONSTS; k += blockDim.x) K[k] = kc[k];
-}
-
 // ---------------------------------------------------------------------------
-// The warp-wide Montgomery body on the tensor cores (`mul_warp`): used by
-// fq_rns_mul and fq_rns_pow (csrc/fq_rns.cu), miller_dbl and hard_exp
-// (csrc/tower_fused.cu); tower_op and fq_rns_chain keep `mul_core`.
+// The warp-wide Montgomery body on the tensor cores (`mul_warp`): the one
+// body of fq_rns_mul, fq_rns_pow and fq_rns_chain (csrc/fq_rns.cu) and of
+// tower_op, miller_dbl and hard_exp (csrc/tower_fused.cu).
 //
 // One warp computes WARP_M = 16 independent products at once.  Lanes
 // 0..15 each name the rows of one task (a, b, out: 79 contiguous floats
@@ -186,9 +76,10 @@ __device__ __forceinline__ void load_consts(float* K, const float* kc) {
 //   ll = lo.E_lo,  mid = hi.E_lo + lo.E_hi,  hh = hi.E_hi.
 // Every plane value lies in [0, 63] (an exact int8) and every partial sum
 // is below 39*63*63*2 < 2^19, so the s32 accumulators hold the very
-// integers the float32 sums of `mul_core` and of the plain version hold:
-// bit-equal by construction, in any summation order.  The recombination
-// after each product is `mul_core`'s float arithmetic, entry by entry, in
+// integers the float32 sums of the plain version (and the TPU kernel's
+// plane products) hold: bit-equal by construction, in any summation
+// order.  The recombination after each product is the plain version's
+// float arithmetic, entry by entry, in
 // the accumulator (C-fragment) layout, where each thread knows its
 // output columns j; the first extension's result is canonical, the
 // second's is loose exactly as the reference's (partials kept apart).
@@ -207,7 +98,7 @@ __device__ __forceinline__ void load_consts(float* K, const float* kc) {
 // conflicts; column reads are conflict-free (79 is odd).
 // ---------------------------------------------------------------------------
 
-#define NV (N_CONSTS - OFF_P)                // float vectors [OFF_P, N_CONSTS): 516
+#define NV N_CONSTS                          // the float vectors: the packed buffer (516)
 #define TC_NT 5                              // n-tiles of 8 outputs (NE = 40)
 #define TC_KS 2                              // k-steps of 32 (NB = 39 padded to 64)
 #define TC_WORDS (2 * 2 * TC_NT * TC_KS * 2 * 32)  // ext x plane x nt x ks x reg x lane
@@ -215,14 +106,14 @@ __device__ __forceinline__ void load_consts(float* K, const float* kc) {
 #define TC_SMEM_BYTES ((NV + TC_WORDS) * 4)  // 12,304: vectors + planes
 #define WARP_M 16                            // tasks of one warp pass (one m-tile)
 #define WARP_TILE (WARP_M * NL)              // floats of one warp's tile (5,056 B)
-#define VX(off) ((off) - OFF_P)              // index of a vector in the shared copy
 #define STAGE_ROWS 8                         // rows whose loads a lane keeps in flight
 
 // Copy the float vectors of the packed buffer and the int8 planes (in
 // mma.sync B-fragment order, packed by ops/fq_rns_cuda.py _pack_tc_planes)
 // into shared memory S (16-byte aligned), block-cooperatively.
 __device__ __forceinline__ void load_tc_consts(float* S, const float* kc, const int* kt) {
-  const float4* v = reinterpret_cast<const float4*>(kc + OFF_P);
+  static_assert(NV % 4 == 0, "the vectors are copied as float4");
+  const float4* v = reinterpret_cast<const float4*>(kc);
   float4* sv = reinterpret_cast<float4*>(S);
   for (int k = threadIdx.x; k < NV / 4; k += blockDim.x) sv[k] = v[k];
   const int4* p = reinterpret_cast<const int4*>(kt);
@@ -301,7 +192,8 @@ __device__ __forceinline__ float floor_w(float y) { return __fadd_rd(y, MAGIC_F)
 __device__ __forceinline__ float i2f_w(int v) { return __int_as_float(MAGIC_I + v) - MAGIC_F; }
 __device__ __forceinline__ int f2i_w(float v) { return __float_as_int(v + MAGIC_F) - MAGIC_I; }
 
-// mod_loose and mod_lanes with floor_w: the same values.
+// The plain version's reductions with floor_w: loose_w, one pass to
+// (-p, 2p) (floor(..)*p is an exact integer), and lanes_w, exact to [0, p).
 __device__ __forceinline__ float loose_w(float x, float p, float ip) {
   return x - floor_w(__fmul_rn(x, ip)) * p;
 }
@@ -348,10 +240,10 @@ __device__ __forceinline__ void mul_warp(float* T, const float* S, const float* 
 #pragma unroll
   for (int rr = 0; rr < 3; ++rr) {
     const int r = min(lane + 32 * rr, NL - 1);
-    pr[rr] = S[VX(OFF_P) + r];
-    ipr[rr] = S[VX(OFF_IP) + r];
-    xo[rr] = S[VX(OFF_XOFF) + r];
-    if (rr < 2) sc[rr] = S[VX(OFF_SIGC) + min(r, NB - 1)];
+    pr[rr] = S[OFF_P + r];
+    ipr[rr] = S[OFF_IP + r];
+    xo[rr] = S[OFF_XOFF + r];
+    if (rr < 2) sc[rr] = S[OFF_SIGC + min(r, NB - 1)];
   }
 #pragma unroll 1
   for (int m0 = 0; m0 < WARP_M; m0 += STAGE_ROWS) {
@@ -415,9 +307,9 @@ __device__ __forceinline__ void mul_warp(float* T, const float* S, const float* 
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int j = nt * 8 + 2 * t + i;
-        const float pj = S[VX(OFF_P) + NB + j], ipj = S[VX(OFF_IP) + NB + j];
-        const float m1 = S[VX(OFF_M1INV) + j], qm1 = S[VX(OFF_QM1INV) + j];
-        const float w2 = S[VX(OFF_W2INV) + min(j, NB - 1)];
+        const float pj = S[OFF_P + NB + j], ipj = S[OFF_IP + NB + j];
+        const float m1 = S[OFF_M1INV + j], qm1 = S[OFF_QM1INV + j];
+        const float w2 = S[OFF_W2INV + min(j, NB - 1)];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int c = 2 * h + i;
@@ -453,14 +345,14 @@ __device__ __forceinline__ void mul_warp(float* T, const float* S, const float* 
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int j = nt * 8 + 2 * t + (c & 1);
-        const float pj = S[VX(OFF_PB1R) + j], ipj = S[VX(OFF_IPB1R) + j];
+        const float pj = S[OFF_PB1R + j], ipj = S[OFF_IPB1R + j];
         raw[c] = loose_w(recombine(ll[c], mid[c], hh[c], pj, ipj), pj, ipj);
       }
       if (k == 0) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const float r_mr = T[(mt * 16 + g + 8 * h) * NL + NL - 1];
-          const float d = lanes_w((raw[2 * h + 1] - r_mr) * S[VX(OFF_M2INVR)], 256.f,
+          const float d = lanes_w((raw[2 * h + 1] - r_mr) * S[OFF_M2INVR], 256.f,
                                   1.f / 256.f);
           delta[h] = __shfl_sync(FULL, d, (lane & ~3) | 3);
         }
@@ -470,8 +362,8 @@ __device__ __forceinline__ void mul_warp(float* T, const float* S, const float* 
         const int j = nt * 8 + 2 * t + (c & 1);
         if (j < NB) {
           T[(mt * 16 + g + 8 * (c >> 1)) * NL + j] =
-              loose_w(raw[c] - delta[c >> 1] * S[VX(OFF_M2B1) + j], S[VX(OFF_P) + j],
-                      S[VX(OFF_IP) + j]);
+              loose_w(raw[c] - delta[c >> 1] * S[OFF_M2B1 + j], S[OFF_P + j],
+                      S[OFF_IP + j]);
         }
       }
     }

@@ -12,24 +12,24 @@
 // float32 integers (checked against the plain PyTorch versions in
 // hbbft_tpu_torch/ops/tower_fused.py, which equal the Pallas kernels).
 //
-// Design.  A block owns LB consecutive lanes (LB is chosen by the wrapper,
-// 1 at narrow widths, up to 8 when the launch is wide).  A tower operation
-// is a sequence of rounds; each round is
+// Design.  A block owns LB consecutive lanes (LB is chosen by the wrapper:
+// see Sizing).  A tower operation is a sequence of rounds; each round is
 //   1. a pointwise phase: thread k of the block takes residue r of lane l
 //      (k = l*79 + r) and computes, from the lane's state, the round's
 //      operand pairs (Karatsuba sums, broadcast constants) into the staging
 //      rows OPA/OPB;
 //   2. a product phase, OUT[p] = OPA[p]*OPB[p] for every product p of every
-//      lane: a warp pass of 16 products at a time (miller_dbl, hard_exp),
-//      or one thread per product (tower_op), as described below;
+//      lane, on the warp-wide tensor-core body (`mul_warp`,
+//      csrc/fq_rns_core.cuh; pass `mul_pass_warp` below);
 //   3. the next pointwise phase reads the products and recombines them.
 // __syncthreads() separates the phases.  The lane state (the Miller f and R,
 // the hard part's register file of six fq12) and the staging rows live in a
 // per-block scratch in device memory, [slot][lane][residue], written and read
 // back by the same block only, so it stays in L1/L2; shared memory holds the
-// field constants.  One launch carries every round: the point of the fused
-// chain is the launch count (one per Miller doubling instead of four stacked
-// multiplies and ~60 elementwise ops, one for the hard part instead of ~700).
+// field constants and the warps' tiles.  One launch carries every round: the
+// point of the fused chain is the launch count (one per Miller doubling
+// instead of four stacked multiplies and ~60 elementwise ops, one for the
+// hard part instead of ~700).
 //
 // What bounds it on the H100.  Per lane the double step runs 118 products and
 // the hard part 11,424 (five x-chains of 63 cyclotomic squares of 30
@@ -37,42 +37,42 @@
 // (double step: 20 rows in, 18 out) and 7,584 (hard part: 12 rows in, 12
 // out) bytes of device memory per lane.  Both are bound by operations, not
 // bytes; at the verification path's narrow widths (~1.6k lanes for the
-// double step) what they meet first is latency: a few serial rounds of
-// products with barriers between them.
+// double step, ~800 for tower_op's fq12 multiply and the hard part) what
+// they meet first is latency: a few serial rounds of products with
+// barriers between them.
 //
-// miller_dbl and hard_exp run their products on the warp-wide tensor-core
-// body (`mul_warp`, csrc/fq_rns_core.cuh; pass `mul_pass_warp` below).  A
-// round's np*nl products are numbered task = p*nl + l and dealt to the
-// block's warps 16 at a time (the last group padded with dummy tasks that
-// store nothing); a warp reads each task's rows across its lanes
-// (coalesced), runs both extensions as int8 mma.sync products and writes
-// the rows back.  The round's rows stay in the device-memory scratch: a
-// lane's 162 staging rows are 51 KB, so a block's would not fit in shared
-// memory, and they are written and read back by the same block within
-// microseconds, so they live in L2.  Shared memory holds the 12.3 KB of
-// constants and the four warps' 5 KB tiles (32,528 B); registers allow
-// four blocks (16 warps) per SM.
-// Sizing (ops/tower_fused_cuda.py lanes_per_block, one policy for both):
-// the lanes per block LB is the smallest power of two (at most 8) for
-// which the grid fits on the card at once (the kernel's blocks per SM from
-// the occupancy query x SMs: 4 x 132 = 528 on the H100).  miller_dbl at
-// the path's ~1,593 lanes: LB = 4 and 399 blocks (3 per SM, 12 warps); its
-// rounds' 192, 72, 28 and 180 products are 12, 5, 2 and 12 groups of 16,
-// so a doubling is 3 + 2 + 1 + 3 serial warp passes of 16 products
-// instead of 3 + 1 + 1 + 3 serial one-thread products.  hard_exp at the
-// path's ~796 lanes: LB = 2 and 398 blocks; a cyclotomic square's 36 and
-// 24 products are 3 and 2 groups (one warp pass each), an fq12 multiply's
-// 108 are 7 (two passes); LB = 1 and 4 measured slower (PERF.md).  Per
-// chain a lane runs 63 cyclotomic squares, 5 set-bit multiplies and the
-// glue: ~668 serial product rounds per lane, each a barrier-separated
-// pointwise phase and warp pass, with three blocks sharing an SM; that,
-// not its operations, is what bounds hard_exp.
-// blk_mul12 and blk_cyclo take the pass as a type (WarpPass or CorePass),
-// so tower_op, which keeps the first design, compiles as before.
+// The product pass.  A round's np*nl products are numbered task = p*nl + l
+// and dealt to the block's four warps 16 at a time (the last group padded
+// with dummy tasks that store nothing); a warp reads each task's rows
+// across its lanes (coalesced), runs both extensions as int8 mma.sync
+// products and writes the rows back.  The round's rows stay in the
+// device-memory scratch: a lane's 162 staging rows are 51 KB, so a block's
+// would not fit in shared memory, and they are written and read back by
+// the same block within microseconds, so they live in L2.  Shared memory
+// holds the 12.3 KB of constants and the four warps' 5 KB tiles (32,528
+// B); __launch_bounds__(128, 4) lets four blocks (16 warps) share an SM.
+// Every kernel's block is set up by block_setup.
 //
-// tower_op keeps the first design: thread k of the block runs the whole
-// per-thread body `mul_core` for product k/nl of lane k%nl, on rows in the
-// scratch read with stride 1 (`mul_pass`).
+// Sizing (ops/tower_fused_cuda.py lanes_per_block, one policy for the
+// three kernels, the policy fit_per_block of every warp-body kernel): the
+// lanes per block LB is the smallest power of two (at most 8) for which
+// the grid fits on the card at once (the kernel's blocks per SM from the
+// occupancy query x SMs: 4 x 132 = 528 on the H100).  tower_op at the
+// path's ~796 lanes (kind fq12_mul, the cross-pair merge): LB = 2 and 398
+// blocks, its 108 products a block 7 groups of 16, two serial warp passes:
+// 0.058 ms of kernel time on an NVIDIA H100 80GB HBM3 at 700.00 W (the
+// first design, a thread a product on the float32 pipe: 0.184; PERF.md).
+// The kinds with 2 or 3 products a lane fill a pass with few real tasks,
+// the rest padding.  miller_dbl at the path's ~1,593 lanes: LB = 4 and 399
+// blocks (3 per SM, 12 warps); its rounds' 192, 72, 28 and 180 products
+// are 12, 5, 2 and 12 groups of 16, so a doubling is 3 + 2 + 1 + 3 serial
+// warp passes.  hard_exp at the path's ~796 lanes: LB = 2 and 398 blocks;
+// a cyclotomic square's 36 and 24 products are 3 and 2 groups (one warp
+// pass each), an fq12 multiply's 108 are 7 (two passes); LB = 1 and 4
+// measured slower (PERF.md).  Per chain a lane runs 63 cyclotomic squares,
+// 5 set-bit multiplies and the glue: ~668 serial product rounds per lane,
+// each a barrier-separated pointwise phase and warp pass, with three
+// blocks sharing an SM; that, not its operations, is what bounds hard_exp.
 //
 // Layout of the operands: the port's (C, n, 79) stacked coefficient rows in
 // the canonical leaf order (fq12: coefficient 6s + 2t + c for fq6-half s,
@@ -322,9 +322,9 @@ struct Blk {
   float* S;        // this block's scratch: slot s, lane l, residue r at S[s*ss + l*79 + r]
   long ss;         // slot stride = LB*79
   int nl;          // valid lanes of this block
-  const float* K;  // field constants (shared memory): mul_core's, or mul_warp's
-  const float* tc; // tower constants (NTC, 79)
-  float* T;        // this warp's mul_warp tile (shared memory), or null
+  const float* K;  // mul_warp's constants (shared memory)
+  const float* tc; // tower constants (NTC, 79), or null
+  float* T;        // this warp's mul_warp tile (shared memory)
   __device__ __forceinline__ El slot(int s) const { return {S + s * ss, ss}; }
   __device__ __forceinline__ Pairs pairs(int k) const {
     return Pairs{S + S_OPA * ss, S + S_OPB * ss, ss, k};
@@ -332,24 +332,11 @@ struct Blk {
   __device__ __forceinline__ Prods prods(int k) const { return Prods{S + S_OUT * ss, ss, k}; }
 };
 
-// OUT[p] = OPA[p] * OPB[p] for p < np, every lane; then a barrier.  Not
-// inlined: one copy of the Montgomery body per kernel keeps the build short.
-__device__ __noinline__ void mul_pass(const Blk& b, int np) {
-  __syncthreads();
-  const float* A = b.S + S_OPA * b.ss;
-  const float* B = b.S + S_OPB * b.ss;
-  float* O = b.S + S_OUT * b.ss;
-  for (int task = threadIdx.x; task < np * b.nl; task += blockDim.x) {
-    const int p = task / b.nl;
-    const int off = p * b.ss + (task - p * b.nl) * NL;
-    mul_core(A + off, 1, B + off, 1, O + off, 1, false, b.K);
-  }
-  __syncthreads();
-}
-
-// The same on the warp-wide tensor-core body: tasks task = p*nl + l dealt
-// to the warps WARP_M at a time; the lanes past the last task re-read task
-// 0's rows and store nothing.  The loop bound is uniform across a warp.
+// OUT[p] = OPA[p] * OPB[p] for p < np, every lane; then a barrier.  Tasks
+// task = p*nl + l are dealt to the warps WARP_M at a time; the lanes past
+// the last task re-read task 0's rows and store nothing.  The loop bound is
+// uniform across a warp.  Not inlined: one copy of the Montgomery body per
+// kernel keeps the build short.
 __device__ __noinline__ void mul_pass_warp(const Blk& b, int np) {
   __syncthreads();
   const float* A = b.S + S_OPA * b.ss;
@@ -366,27 +353,15 @@ __device__ __noinline__ void mul_pass_warp(const Blk& b, int np) {
   __syncthreads();
 }
 
-// The product pass of a shared round helper: the per-thread body
-// (tower_op) or the warp body (hard_exp).
-struct CorePass {
-  __device__ __forceinline__ void operator()(const Blk& b, int np) const { mul_pass(b, np); }
-};
-struct WarpPass {
-  __device__ __forceinline__ void operator()(const Blk& b, int np) const {
-    mul_pass_warp(b, np);
-  }
-};
-
 #define FOR_K(b) for (int k = threadIdx.x; k < (b).nl * NL; k += blockDim.x)
 
 // out = x * y (fq12).  out may be x or y.
-template <class Pass>
 __device__ __noinline__ void blk_mul12(const Blk& b, El x, El y, El out) {
   FOR_K(b) {
     Pairs pr = b.pairs(k);
     pr.mul12(x.f12(k), y.f12(k));
   }
-  Pass()(b, 54);
+  mul_pass_warp(b, 54);
   FOR_K(b) {
     Prods q = b.prods(k);
     out.put12(k, q.mul12());
@@ -397,13 +372,12 @@ __device__ __noinline__ void blk_mul12(const Blk& b, El x, El y, El out) {
 // out = cyclotomic square of x: 18 squaring lanes, the Granger-Scott
 // recombination, then the 12-lane renormalization (a product by ONE).
 // out may be x.
-template <class Pass>
 __device__ __noinline__ void blk_cyclo(const Blk& b, El x, El out) {
   FOR_K(b) {
     Pairs pr = b.pairs(k);
     pr.cyclo(x.f12(k));
   }
-  Pass()(b, 18);
+  mul_pass_warp(b, 18);
   FOR_K(b) {
     Prods q = b.prods(k);
     F2 sq[9];
@@ -429,7 +403,7 @@ __device__ __noinline__ void blk_cyclo(const Blk& b, El x, El out) {
       pr.fq(s[i].c1, one);
     }
   }
-  Pass()(b, 12);
+  mul_pass_warp(b, 12);
   FOR_K(b) {
     Prods q = b.prods(k);
     for (int c = 0; c < 12; ++c) out.at(c, k) = q.fq();
@@ -437,44 +411,51 @@ __device__ __noinline__ void blk_cyclo(const Blk& b, El x, El out) {
   __syncthreads();
 }
 
-__device__ __forceinline__ void block_setup(float* K, const float* kc, float* scratch,
-                                            int n, int lb, int nslots, Blk& b,
-                                            long& lane0) {
-  load_consts(K, kc);
-  lane0 = (long)blockIdx.x * lb;
+#define WARP_SMEM (TC_SMEM_BYTES + (TPB / 32) * WARP_TILE * 4)  // a block's shared memory
+
+// A block's set-up, the same in every kernel: mul_warp's constants into
+// the dynamic shared memory smem, this warp's tile after them, the block's
+// lanes and its scratch (nslots slots of LB lanes).  Returns the block's
+// first lane.
+__device__ __forceinline__ long block_setup(Blk& b, float* smem, const float* kc,
+                                            const int* kt, const float* tc, float* scratch,
+                                            int n, int lb, int nslots) {
+  load_tc_consts(smem, kc, kt);
+  const long lane0 = (long)blockIdx.x * lb;
   b.ss = (long)lb * NL;
   b.S = scratch + (long)blockIdx.x * nslots * b.ss;
   b.nl = (int)min((long)lb, (long)n - lane0);
-  b.K = K;
+  b.K = smem;
+  b.tc = tc;
+  b.T = smem + NV + TC_WORDS + (threadIdx.x >> 5) * WARP_TILE;
   __syncthreads();
+  return lane0;
 }
 
 // ---------------------------------------------------------------------------
 // Kernel 1: one tower operation (kind 0..6, in ops/tower_fused.py's order)
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(TPB)
+__global__ void __launch_bounds__(TPB, 4)
 tower_op_kernel(int kind, const float* a, const float* bb, float* out, int n, int lb,
-                float* scratch, const float* __restrict__ kc, const float* tc) {
-  __shared__ __align__(16) float K[N_CONSTS];  // float2 views of E1/E2
+                float* scratch, const float* __restrict__ kc, const int* __restrict__ kt,
+                const float* tc) {
+  extern __shared__ __align__(16) float smem[];  // mul_warp constants, then the tiles
   Blk b;
-  long lane0;
-  block_setup(K, kc, scratch, n, lb, OP_SLOTS, b, lane0);
-  b.tc = tc;
+  const long lane0 = block_setup(b, smem, kc, kt, tc, scratch, n, lb, OP_SLOTS);
   const long cs = (long)n * NL;
   const El x{const_cast<float*>(a) + lane0 * NL, cs};
   const El y{const_cast<float*>(bb) + lane0 * NL, cs};
   const El o{out + lane0 * NL, cs};
 
   if (kind == 6) {  // fq12_cyclo_sqr
-    blk_cyclo<CorePass>(b, x, o);
+    blk_cyclo(b, x, o);
     return;
   }
   if (kind == 4) {  // fq12_mul
-    blk_mul12<CorePass>(b, x, y, o);
+    blk_mul12(b, x, y, o);
     return;
   }
-  int np = 0;
   FOR_K(b) {
     Pairs pr = b.pairs(k);
     switch (kind) {
@@ -493,8 +474,8 @@ tower_op_kernel(int kind, const float* a, const float* bb, float* out, int n, in
       case 5: pr.sqr12(x.f12(k)); break;
     }
   }
-  np = kind == 0 ? 3 : kind == 1 ? 2 : kind == 5 ? 36 : 18;
-  mul_pass(b, np);
+  const int np = kind == 0 ? 3 : kind == 1 ? 2 : kind == 5 ? 36 : 18;
+  mul_pass_warp(b, np);
   FOR_K(b) {
     Prods q = b.prods(k);
     switch (kind) {
@@ -515,23 +496,13 @@ tower_op_kernel(int kind, const float* a, const float* bb, float* out, int n, in
 // Kernel 2: one Miller doubling, f <- f^2 * l_R(P), R <- 2R
 // ---------------------------------------------------------------------------
 
-#define WARP_SMEM (TC_SMEM_BYTES + (TPB / 32) * WARP_TILE * 4)  // miller_dbl, hard_exp
-
 __global__ void __launch_bounds__(TPB, 4)
 miller_dbl_kernel(const float* f_in, const float* r_in, const float* p_in, float* f_out,
                   float* r_out, int n, int lb, float* scratch,
                   const float* __restrict__ kc, const int* __restrict__ kt) {
   extern __shared__ __align__(16) float smem[];  // mul_warp constants, then the tiles
   Blk b;
-  const long lane0 = (long)blockIdx.x * lb;
-  load_tc_consts(smem, kc, kt);
-  b.ss = (long)lb * NL;
-  b.S = scratch + (long)blockIdx.x * DBL_SLOTS * b.ss;
-  b.nl = (int)min((long)lb, (long)n - lane0);
-  b.K = smem;
-  b.tc = nullptr;
-  b.T = smem + NV + TC_WORDS + (threadIdx.x >> 5) * WARP_TILE;
-  __syncthreads();
+  const long lane0 = block_setup(b, smem, kc, kt, nullptr, scratch, n, lb, DBL_SLOTS);
   const long cs = (long)n * NL;
   const El f{const_cast<float*>(f_in) + lane0 * NL, cs};
   const El R{const_cast<float*>(r_in) + lane0 * NL, cs};
@@ -712,15 +683,7 @@ hard_exp_kernel(const int* __restrict__ bits, int nbits, const float* m_in, floa
                 const int* __restrict__ kt, const float* tc) {
   extern __shared__ __align__(16) float smem[];  // mul_warp constants, then the tiles
   Blk b;
-  const long lane0 = (long)blockIdx.x * lb;
-  load_tc_consts(smem, kc, kt);
-  b.ss = (long)lb * NL;
-  b.S = scratch + (long)blockIdx.x * HARD_SLOTS * b.ss;
-  b.nl = (int)min((long)lb, (long)n - lane0);
-  b.K = smem;
-  b.tc = tc;
-  b.T = smem + NV + TC_WORDS + (threadIdx.x >> 5) * WARP_TILE;
-  __syncthreads();
+  const long lane0 = block_setup(b, smem, kc, kt, tc, scratch, n, lb, HARD_SLOTS);
   const long cs = (long)n * NL;
   const El M{const_cast<float*>(m_in) + lane0 * NL, cs};
 
@@ -729,20 +692,20 @@ hard_exp_kernel(const int* __restrict__ bits, int nbits, const float* m_in, floa
   // Five x-power chains, each ending in its glue round.
   for (int chain = 0; chain < 5; ++chain) {
     for (int i = 0; i < nbits; ++i) {
-      blk_cyclo<WarpPass>(b, b.slot(H_ACC), b.slot(H_ACC));
-      if (bits[i]) blk_mul12<WarpPass>(b, b.slot(H_ACC), b.slot(H_BASE), b.slot(H_ACC));
+      blk_cyclo(b, b.slot(H_ACC), b.slot(H_ACC));
+      if (bits[i]) blk_mul12(b, b.slot(H_ACC), b.slot(H_BASE), b.slot(H_ACC));
     }
     hard_glue(b, M, chain);
   }
   // ACC = y0'.  m^3 = cyclo(m) * m -> BASE;  y0 = y0' * m^3 -> ACC.
-  blk_cyclo<WarpPass>(b, M, b.slot(H_BASE));
-  blk_mul12<WarpPass>(b, b.slot(H_BASE), M, b.slot(H_BASE));
-  blk_mul12<WarpPass>(b, b.slot(H_ACC), b.slot(H_BASE), b.slot(H_ACC));
+  blk_cyclo(b, M, b.slot(H_BASE));
+  blk_mul12(b, b.slot(H_BASE), M, b.slot(H_BASE));
+  blk_mul12(b, b.slot(H_ACC), b.slot(H_BASE), b.slot(H_ACC));
   hard_frob(b);
   // ((y0 F1) F2) F3 regrouped as (y0 F1) (F2 F3), as the reference does.
-  blk_mul12<WarpPass>(b, b.slot(H_ACC), b.slot(H_Y1), b.slot(H_ACC));
-  blk_mul12<WarpPass>(b, b.slot(H_Y2), b.slot(H_Y3), b.slot(H_Y2));
-  blk_mul12<WarpPass>(b, b.slot(H_ACC), b.slot(H_Y2), El{out + lane0 * NL, cs});
+  blk_mul12(b, b.slot(H_ACC), b.slot(H_Y1), b.slot(H_ACC));
+  blk_mul12(b, b.slot(H_Y2), b.slot(H_Y3), b.slot(H_Y2));
+  blk_mul12(b, b.slot(H_ACC), b.slot(H_Y2), El{out + lane0 * NL, cs});
 }
 
 // ---------------------------------------------------------------------------
@@ -757,18 +720,13 @@ int tower_fused_op_slots(void) { return OP_SLOTS; }
 int tower_fused_dbl_slots(void) { return DBL_SLOTS; }
 int tower_fused_hard_slots(void) { return HARD_SLOTS; }
 
-int tower_op(int kind, const float* a, const float* b, float* out, int n, int lb,
-             float* scratch, const float* kc, const float* tc, void* stream) {
-  if (n <= 0) return 0;
-  unsigned grid = (unsigned)((n + lb - 1) / lb);
-  tower_op_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(kind, a, b, out, n, lb,
-                                                           scratch, kc, tc);
-  return (int)cudaGetLastError();
-}
-
-// Launch set-up of the warp-body kernels, once per process and device
+// Launch set-up of the three kernels, once per process and device
 // (launch_setup).
-static LaunchSetup g_dbl[MAX_DEVICES], g_hard[MAX_DEVICES];
+static LaunchSetup g_op[MAX_DEVICES], g_dbl[MAX_DEVICES], g_hard[MAX_DEVICES];
+
+static const LaunchSetup& op_setup() {
+  return launch_setup(g_op, tower_op_kernel, TPB, WARP_SMEM);
+}
 
 static const LaunchSetup& dbl_setup() {
   return launch_setup(g_dbl, miller_dbl_kernel, TPB, WARP_SMEM);
@@ -778,8 +736,13 @@ static const LaunchSetup& hard_setup() {
   return launch_setup(g_hard, hard_exp_kernel, TPB, WARP_SMEM);
 }
 
-// Blocks of miller_dbl_kernel (hard_exp_kernel) resident on one SM, or a
-// negative CUDA error.
+// Blocks of tower_op_kernel (miller_dbl_kernel, hard_exp_kernel) resident
+// on one SM, or a negative CUDA error.
+int tower_fused_op_blocks_per_sm(void) {
+  const LaunchSetup& s = op_setup();
+  return s.rc ? -s.rc : s.per_sm;
+}
+
 int tower_fused_dbl_blocks_per_sm(void) {
   const LaunchSetup& s = dbl_setup();
   return s.rc ? -s.rc : s.per_sm;
@@ -788,6 +751,17 @@ int tower_fused_dbl_blocks_per_sm(void) {
 int tower_fused_hard_blocks_per_sm(void) {
   const LaunchSetup& s = hard_setup();
   return s.rc ? -s.rc : s.per_sm;
+}
+
+int tower_op(int kind, const float* a, const float* b, float* out, int n, int lb,
+             float* scratch, const float* kc, const int* kt, const float* tc, void* stream) {
+  if (n <= 0) return 0;
+  const int rc = op_setup().rc;
+  if (rc) return rc;
+  unsigned grid = (unsigned)((n + lb - 1) / lb);
+  tower_op_kernel<<<grid, TPB, WARP_SMEM, (cudaStream_t)stream>>>(kind, a, b, out, n, lb,
+                                                                   scratch, kc, kt, tc);
+  return (int)cudaGetLastError();
 }
 
 int miller_dbl(const float* f, const float* r, const float* p, float* f_out,

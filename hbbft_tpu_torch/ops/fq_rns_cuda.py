@@ -1,21 +1,23 @@
-"""The RNS Montgomery multiply and fixed-exponent power as CUDA kernels.
+"""The RNS Montgomery multiply, fixed-exponent power and product chain as
+CUDA kernels.
 
-The port of the JAX package's ``ops/fq_rns_pallas.py``.  Two kernels,
+The port of the JAX package's ``ops/fq_rns_pallas.py``.  Three kernels,
 written by hand for Hopper in ``csrc/fq_rns.cu`` (the design note there
-says what bounds them and why they are laid out as they are):
+says what bounds them and why they are laid out as they are), all on one
+warp-wide body that runs the base extensions as int8 tensor-core
+products, fed by the constant planes ``_pack_tc_planes`` packs:
 
 * ``fq_rns_mul``  replaces ``_mul_kernel`` / ``_mul_core`` — one full-RNS
   Montgomery product a·b·M1⁻¹ (mod Q) per lane, with the ``reduced``
-  flag of ``_mul_core`` (skip the input renormalization); its warps run
-  the base extensions as int8 tensor-core products, fed by the constant
-  planes ``_pack_tc_planes`` packs;
+  flag of ``_mul_core`` (skip the input renormalization);
 * ``fq_rns_pow``  replaces ``_pow_kernel`` — the whole square-and-multiply
   chain over a fixed exponent in one launch (its reason to exist is the
   380-bit Fermat inverse Q−2), each warp chaining the products of one
-  group of 16 lanes on the same tensor-core body;
+  group of 16 lanes;
 * ``fq_rns_chain`` replaces ``_chain_kernel`` — n chained products
   x ← x·b in one launch (the kernel bench's ceiling probe: both operands
-  renormalized once, then ``reduced`` products).
+  renormalized once, then ``reduced`` products), each warp chaining one
+  group of 16 lanes as the power does.
 
 Beside each kernel sits its plain PyTorch version (``mul_plain``,
 ``pow_plain``, ``mul_chain_plain``), stage for stage the TPU kernel's
@@ -25,10 +27,9 @@ run the plain version on CPU tensors and launch the kernel on CUDA
 tensors; there is no fallback from one to the other.  Each wrapper
 counts its launches in ``.launches``.
 
-Layout: the public ``(..., 79)`` float32 rows.  ``fq_rns_mul`` and
-``fq_rns_pow`` read them row by row (their warps stage and reduce in
-place), the chain kernel transposes its tile in shared memory, so there
-is no separate layout pass.  A one-row operand of ``mul`` is read in place with
+Layout: the public ``(..., 79)`` float32 rows, read row by row (the
+warps stage and reduce in place), so there is no separate layout pass.
+A one-row operand of ``mul`` is read in place with
 lane stride 0 (counted in ``mul.broadcast_launches``); other broadcasts
 are expanded first.
 """
@@ -63,15 +64,13 @@ _M2INV_R = float(R._M2INV_R)
 
 
 def _pack_kernel_consts() -> np.ndarray:
-    """The constant buffer the kernel copies into shared memory; the
-    layout (offsets OFF_* in csrc/fq_rns.cu) is checked against the
-    library's own count at load."""
-    e1 = np.stack([R._E1_LO.T, R._E1_HI.T], axis=-1)  # (40, 39, 2): [j][i]
-    e2 = np.stack([R._E2_LO.T, R._E2_HI.T], axis=-1)
+    """The float vectors the kernels copy into shared memory; the layout
+    (offsets OFF_* in csrc/fq_rns_core.cuh) is checked against each
+    library's own count at load.  The extension matrices travel as the
+    int8 planes of ``_pack_tc_planes``."""
     parts = [
-        e1.reshape(-1), e2.reshape(-1), _P, _IP, _XOFF, R._SIGMA_C_B1,
-        R._M1INV_B2R, R._QM1INV_B2R, R._W2INV_B2, _PB1R, _IPB1R, R._M2_B1,
-        np.asarray([_M2INV_R, 0.0]),
+        _P, _IP, _XOFF, R._SIGMA_C_B1, R._M1INV_B2R, R._QM1INV_B2R, R._W2INV_B2,
+        _PB1R, _IPB1R, R._M2_B1, np.asarray([_M2INV_R, 0.0]),
     ]
     return np.concatenate([np.asarray(p, dtype=np.float32) for p in parts])
 
@@ -227,12 +226,13 @@ def _lib() -> ctypes.CDLL:
         lib.fq_rns_mul.restype = i
         lib.fq_rns_pow.argtypes = [ptr, ptr, i, ptr, ptr, i, i, ptr, ptr, ptr]
         lib.fq_rns_pow.restype = i
-        lib.fq_rns_chain.argtypes = [ptr, ptr, ptr, i, i, ptr, ptr]
+        lib.fq_rns_chain.argtypes = [ptr, ptr, ptr, ptr, i, i, i, ptr, ptr, ptr]
         lib.fq_rns_chain.restype = i
         lib.fq_rns_const_floats.restype = i
         lib.fq_rns_tc_bytes.restype = i
         lib.fq_rns_mul_blocks_per_sm.restype = i
         lib.fq_rns_pow_blocks_per_sm.restype = i
+        lib.fq_rns_chain_blocks_per_sm.restype = i
         lib.fq_rns_error_string.argtypes = [i]
         lib.fq_rns_error_string.restype = ctypes.c_char_p
         if lib.fq_rns_const_floats() != _KCONSTS.size:
@@ -308,11 +308,20 @@ def mul(a: torch.Tensor, b: torch.Tensor, reduced: bool = False) -> torch.Tensor
     return out
 
 
-def _blocks_per_sm(device, query, what: str) -> int:
-    with torch.cuda.device(device):
-        got = query()
-    if got <= 0:
-        raise RuntimeError(f"{what} occupancy query failed ({-got})")
+_PER_SM: dict = {}  # (device, kernel) → the kernel's occupancy query's answer
+
+
+def _blocks_per_sm(device, query, kernel: str) -> int:
+    """``query``, the CUDA runtime's occupancy query for ``kernel``'s
+    launch configuration, asked once per device (a launch may size by it)."""
+    device = torch.device(device)
+    got = _PER_SM.get((device, kernel))
+    if got is None:
+        with torch.cuda.device(device):
+            got = query()
+        if got <= 0:
+            raise RuntimeError(f"{kernel} occupancy query failed ({-got})")
+        _PER_SM[device, kernel] = got
     return got
 
 
@@ -326,6 +335,12 @@ def pow_blocks_per_sm(device) -> int:
     """Blocks of ``fq_rns_pow`` (at its widest, four warps) resident on one
     SM of the card."""
     return _blocks_per_sm(device, _lib().fq_rns_pow_blocks_per_sm, "fq_rns_pow")
+
+
+def chain_blocks_per_sm(device) -> int:
+    """Blocks of ``fq_rns_chain`` (at its widest, four warps) resident on
+    one SM of the card."""
+    return _blocks_per_sm(device, _lib().fq_rns_chain_blocks_per_sm, "fq_rns_chain")
 
 
 def fit_per_block(n: int, resident: int, most: int) -> int:
@@ -345,16 +360,18 @@ mul.lanes = 0  # lanes over all launches (lanes / launches = mean launch width)
 mul.widths = Counter()  # launches by width class: key b holds widths in [2^(b-1), 2^b)
 
 
-#: most warps (lane groups of 16) per block of fq_rns_pow
-POW_MAX_WARPS = 4
+#: most warps (lane groups of 16) per block of fq_rns_pow and fq_rns_chain
+MAX_WARPS = 4
 WARP_M = 16  # lanes of one warp pass (csrc/fq_rns_core.cuh)
 
 
-def pow_warps_per_block(n: int, sms: int) -> int:
-    """fq_rns_pow's warps per block for n lanes: one warp per group of 16
-    lanes, the fewest per block (1, 2 or 4) whose grid fits on the SMs at
-    once, so a chain's warps spread over the card's SMs."""
-    return fit_per_block(-(-n // WARP_M), sms, POW_MAX_WARPS)
+def group_warps_per_block(n: int, resident: int) -> int:
+    """fq_rns_pow's and fq_rns_chain's warps per block for n lanes: one
+    warp per group of 16 lanes, the fewest per block (1, 2 or 4) whose grid
+    fits ``resident`` blocks at once.  The power passes the SM count, so a
+    narrow launch spreads an SM a block; the chain the blocks the card
+    holds."""
+    return fit_per_block(-(-n // WARP_M), resident, MAX_WARPS)
 
 
 _SMS: dict = {}  # device → SMs of the card
@@ -385,7 +402,7 @@ def pow_fixed(x: torch.Tensor, exponent: int) -> torch.Tensor:
     lib = _lib()
     c = _consts(x.device)
     base = torch.empty_like(x)  # the renormalized base, written by the kernel
-    warps = pow_warps_per_block(n, _sms(x.device))
+    warps = group_warps_per_block(n, _sms(x.device))
     key = (exponent, x.device)
     bits_t = _BITS.get(key)
     if bits_t is None:
@@ -430,11 +447,14 @@ def mul_chain(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
     if lanes == 0:
         return out
     lib = _lib()
-    kc = _consts(a.device)["kernel"]
+    c = _consts(a.device)
+    bs = torch.empty_like(b)  # loose(b), written by the kernel
+    warps = group_warps_per_block(lanes, chain_blocks_per_sm(a.device) * _sms(a.device))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.fq_rns_chain(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes, n, kc.data_ptr(), stream,
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), bs.data_ptr(), lanes, n, warps,
+            c["kernel"].data_ptr(), c["planes"].data_ptr(), stream,
         )
     _check(lib, rc, "fq_rns_chain")
     mul_chain.launches += 1

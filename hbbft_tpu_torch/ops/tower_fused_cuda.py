@@ -1,13 +1,17 @@
 """The fused tower kernels of ``csrc/tower_fused.cu``, bound with ctypes.
 
-Three kernels (the design note in the source says what bounds them):
+Three kernels, every product of each on the warp-wide tensor-core body
+of ``csrc/fq_rns_core.cuh`` (the design note in the source says what
+bounds them):
 
 * ``tower_op``   replaces ``tower_fused._op_kernel`` — one fq2/fq6/fq12
   multiply or square, or a cyclotomic square;
-* ``miller_dbl`` replaces ``_dbl_kernel`` — one Miller doubling, its
-  products on the warp-wide tensor-core body;
+* ``miller_dbl`` replaces ``_dbl_kernel`` — one Miller doubling;
 * ``hard_exp``   replaces ``_hard_kernel`` — the whole final-exponentiation
-  hard part, its products on the same body.
+  hard part.
+
+All three are sized by one policy, ``lanes_per_block``, against the
+blocks of each the card holds at once (``resident_blocks``).
 
 Their plain PyTorch versions are ``op_plain``, ``dbl_plain`` and
 ``hard_plain`` in ``ops/tower_fused.py``, whose public wrappers call these
@@ -34,12 +38,8 @@ from hbbft_tpu_torch.utils import cuda_build
 NL = TF.NL
 _SRC = "tower_fused"
 
-#: most lanes per block of the tower kernels.  tower_op takes one at
-#: narrow widths (parallelism across blocks), up to MAX_LB when a launch
-#: already fills the card's 132 SMs twice over; miller_dbl and hard_exp a
-#: power of two up to MAX_LB (see lanes_per_block)
+#: most lanes per block of the tower kernels (see lanes_per_block)
 MAX_LB = 8
-_SMS = 132
 
 #: coefficient count of each op kind's element (kind index = position)
 _OP_COEFFS = {i: n for i, (_, n, _) in enumerate(TF._OP_BODY.values())}
@@ -49,15 +49,15 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(_SRC)
     if not getattr(lib, "_hbbft_ready", False):
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.tower_op.argtypes = [i, ptr, ptr, ptr, i, i, ptr, ptr, ptr, ptr]
+        lib.tower_op.argtypes = [i, ptr, ptr, ptr, i, i, ptr, ptr, ptr, ptr, ptr]
         lib.miller_dbl.argtypes = [ptr, ptr, ptr, ptr, ptr, i, i, ptr, ptr, ptr, ptr]
         lib.hard_exp.argtypes = [ptr, i, ptr, ptr, i, i, ptr, ptr, ptr, ptr, ptr]
         for fn in (lib.tower_op, lib.miller_dbl, lib.hard_exp):
             fn.restype = i
         for name in ("tower_fused_const_floats", "tower_fused_op_slots",
                      "tower_fused_dbl_slots", "tower_fused_hard_slots",
-                     "tower_fused_tc_bytes", "tower_fused_dbl_blocks_per_sm",
-                     "tower_fused_hard_blocks_per_sm"):
+                     "tower_fused_tc_bytes", "tower_fused_op_blocks_per_sm",
+                     "tower_fused_dbl_blocks_per_sm", "tower_fused_hard_blocks_per_sm"):
             getattr(lib, name).restype = i
         lib.tower_fused_error_string.argtypes = [i]
         lib.tower_fused_error_string.restype = ctypes.c_char_p
@@ -75,28 +75,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _lanes_per_block(n: int) -> int:
-    return max(1, min(MAX_LB, n // (2 * _SMS)))
-
-
 def lanes_per_block(n: int, resident: int) -> int:
-    """miller_dbl's and hard_exp's lanes per block for n lanes on a card
-    that holds ``resident`` of the kernel's blocks at once (blocks per SM
-    x SMs): the smallest power of two, at most MAX_LB, whose grid fits at
-    once."""
+    """A tower kernel's lanes per block for n lanes on a card that holds
+    ``resident`` of the kernel's blocks at once (blocks per SM x SMs): the
+    smallest power of two, at most MAX_LB, whose grid fits at once."""
     return fq_rns_cuda.fit_per_block(n, resident, MAX_LB)
 
 
-#: the warp-body kernels and their occupancy queries
-_BLOCKS_PER_SM = {"miller_dbl": "tower_fused_dbl_blocks_per_sm",
+#: the kernels and their occupancy queries
+_BLOCKS_PER_SM = {"tower_op": "tower_fused_op_blocks_per_sm",
+                  "miller_dbl": "tower_fused_dbl_blocks_per_sm",
                   "hard_exp": "tower_fused_hard_blocks_per_sm"}
 _RESIDENT: Dict[tuple, int] = {}
 
 
 def resident_blocks(device, kernel: str) -> int:
-    """Blocks of ``kernel`` (miller_dbl or hard_exp) the card holds at
-    once: the occupancy query's blocks per SM times the SM count (cached
-    per device)."""
+    """Blocks of ``kernel`` (tower_op, miller_dbl or hard_exp) the card
+    holds at once: the occupancy query's blocks per SM times the SM count
+    (cached per device)."""
     device = torch.device(device)
     got = _RESIDENT.get((device, kernel))
     if got is None:
@@ -145,14 +141,15 @@ def tower_op(kind: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     lib = _lib()
-    lb = _lanes_per_block(n)
+    lb = lanes_per_block(n, resident_blocks(a.device, "tower_op"))
     scratch = _scratch(lib.tower_fused_op_slots(), n, lb, a.device)
-    kc = fq_rns_cuda._consts(a.device)["kernel"]
+    c = fq_rns_cuda._consts(a.device)
     tc = TF.tower_consts(a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.tower_op(kind, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, lb,
-                          scratch.data_ptr(), kc.data_ptr(), tc.data_ptr(), stream)
+                          scratch.data_ptr(), c["kernel"].data_ptr(), c["planes"].data_ptr(),
+                          tc.data_ptr(), stream)
     _launch(lib, rc, "tower_op")
     _count(tower_op, n)
     return out

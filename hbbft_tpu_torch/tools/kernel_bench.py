@@ -20,17 +20,22 @@ and reports ms per launch (per product for the chain) and M muls/s.
 With ``--launch`` it times instead one launch of each kernel of the
 epoch path — ``fq_rns_mul``, ``miller_dbl``, ``tower_op`` (its
 ``fq12_mul``) and ``hard_exp`` at the path's mean widths, ``fq_rns_pow``
-at its narrowest and widest launches — and of the limb arm's
-``fq_limb_mul`` and ``fq_limb_pow`` (e = Q−2) at that path's mean widths
-(``--launch-lanes`` picks kernels and widths), each two ways: one call between two CUDA events, as
+at its narrowest and widest launches — of the limb arm's
+``fq_limb_mul`` and ``fq_limb_pow`` (e = Q−2) at that path's mean widths,
+and of ``fq_rns_chain`` (``CHAIN`` products) at the bench's mean width and
+one wave (``--launch-lanes`` picks kernels and widths), each three ways: one call between two CUDA events, as
 ``chip_smoke.time_ms`` does (so it also counts the host's launch
-latency), and per call of ``STREAM`` back-to-back calls between two
-events (the card never waits on the host).  Only public wrappers that
+latency); per call of ``STREAM`` back-to-back calls between two events
+(the card waits on the host only where a call's host work outlasts its
+kernels); and, on the card, the kernel time per call of ``STREAM`` calls
+that ``torch.profiler`` reads (the card's time alone).  Only public wrappers that
 every version of the port has are called, so this file can time another
 checkout's package: run it as a script with that checkout's root on
 ``PYTHONPATH``.  ``--hard-lb`` adds ``hard_exp`` at the given lanes per
 block (this checkout's wrapper only), each checked equal to the default
-sizing's result.  Both
+sizing's result.  On the card it then prints the compiler's register
+and spill lines of the RNS and tower libraries (``-Xptxas -v``) and the
+occupancy queries the wrappers have.  Both
 field arms run in this one process: their kernels are called directly,
 not through the ``HBBFT_TPU_FQ_IMPL`` facade.  Then the FMA probe
 (``fma_probe``) at a tile that fills the card's 132 SMs several times
@@ -69,10 +74,13 @@ PROBE_ITERS = probe_cuda.REF_ITERS
 FP32_PEAK_TFLOPS = 67.0  # H100 SXM, float32 outside the tensor cores, 700 W
 #: per-launch widths: the mean launch widths of two N=100 epochs, and
 #: fq_rns_pow's narrowest and widest launches (no launch has its mean;
-#: 2,048 lanes on two epochs) and the top of the widest class, 4,095
+#: 2,048 lanes on two epochs) and the top of the widest class, 4,095; the
+#: limb arm's means; the chain at the bench's mean (87,040 lanes) and one
+#: wave of one-warp blocks (4,096)
 LAUNCH_LANES = {"fq_rns_mul": (191251,), "miller_dbl": (1593,), "tower_op": (796,),
                 "hard_exp": (796,), "fq_rns_pow": (1, 2048, 4095),
-                "fq_limb_mul": (35450,), "fq_limb_pow": (14,)}
+                "fq_limb_mul": (35450,), "fq_limb_pow": (14,),
+                "fq_rns_chain": (87040, 4096)}
 #: back-to-back calls per sample of the second per-launch timing
 STREAM = 50
 
@@ -115,9 +123,38 @@ def seconds_per_call(fn, dev: torch.device, reps: int = 5) -> float:
 def ms_per_launch(fn, dev: torch.device, reps: int = 7) -> dict:
     """Median ms of one fn() after one warm-up: ``single`` one call between
     two CUDA events, ``stream`` per call of STREAM back-to-back calls (on
-    the CPU both are the host clock's, per call)."""
-    return {"single": seconds_per_call(fn, dev, reps) * 1e3,
-            "stream": seconds_per_call(_repeat(fn, STREAM), dev, reps) * 1e3 / STREAM}
+    the CPU both are the host clock's, per call); on the card also
+    ``device``, the kernel time per call (``device_ms_per_call``)."""
+    out = {"single": seconds_per_call(fn, dev, reps) * 1e3,
+           "stream": seconds_per_call(_repeat(fn, STREAM), dev, reps) * 1e3 / STREAM}
+    if dev.type == "cuda":
+        out["device"] = device_ms_per_call(fn)
+    return out
+
+
+def device_ms_per_call(fn, n: int = STREAM) -> float:
+    """The card's kernel time per call of fn: every kernel that n
+    back-to-back calls launch, summed by torch.profiler, over n."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return us / 1e3 / n
+
+
+def _ms_text(ms: dict) -> str:
+    text = (f"{ms['single']:.4f} ms one call, {ms['stream']:.4f} ms a call of {STREAM} "
+            f"back to back")
+    if "device" in ms:
+        text += f", {ms['device']:.4f} ms of kernel time a call"
+    return text
 
 
 def _launch_fn(name: str, n: int, rng, dev):
@@ -131,6 +168,9 @@ def _launch_fn(name: str, n: int, rng, dev):
     if name == "fq_rns_pow":
         x = _rows(rng, n, nl, dev)
         return lambda: fq_rns_cuda.pow_fixed(x, Q - 2)
+    if name == "fq_rns_chain":
+        a, b = _rows(rng, n, nl, dev), _rows(rng, n, nl, dev)
+        return lambda: fq_rns_cuda.mul_chain(a, b, CHAIN)
     if name == "fq_limb_mul":
         a, b = _rows(rng, n, fq_limb_cuda.NL, dev), _rows(rng, n, fq_limb_cuda.NL, dev)
         return lambda: fq_limb_cuda.mul(a, b)
@@ -165,8 +205,7 @@ def launch_run(device="cuda", lanes=None, hard_lb=(), log=print) -> dict:
         for n in widths:
             ms = ms_per_launch(_launch_fn(name, n, rng, dev), dev)
             rows.append({"kernel": name, "lanes": n, **ms})
-            log(f"kernel_bench launch {name} lanes={n}: {ms['single']:.4f} ms one call, "
-                f"{ms['stream']:.4f} ms a call of {STREAM} back to back [{card}]")
+            log(f"kernel_bench launch {name} lanes={n}: {_ms_text(ms)} [{card}]")
     if hard_lb and dev.type != "cuda":
         raise ValueError("--hard-lb sweeps the kernel: it needs the card")
     for n in lanes.get("hard_exp", ()) if hard_lb else ():
@@ -177,9 +216,40 @@ def launch_run(device="cuda", lanes=None, hard_lb=(), log=print) -> dict:
                 raise AssertionError(f"hard_exp at LB={lb} differs from the default sizing")
             ms = ms_per_launch(lambda: tower_fused_cuda.hard_exp(m, lb=lb), dev)
             rows.append({"kernel": "hard_exp", "lanes": n, "lb": lb, **ms})
-            log(f"kernel_bench launch hard_exp lanes={n} LB={lb}: {ms['single']:.4f} ms one "
-                f"call, {ms['stream']:.4f} ms a call of {STREAM} back to back [{card}]")
-    return {"device": str(dev), "card": card, "launch": rows}
+            log(f"kernel_bench launch hard_exp lanes={n} LB={lb}: {_ms_text(ms)} [{card}]")
+    res = {"device": str(dev), "card": card, "launch": rows}
+    if dev.type == "cuda":
+        res["build"] = build_report(dev, log)
+    return res
+
+
+def build_report(dev, log=print, sources=("fq_rns", "tower_fused")) -> dict:
+    """The compiler's entry, register, spill and error lines of the named
+    libraries (``-Xptxas -v``), and the blocks per SM of each occupancy
+    query of their kernels that this checkout's wrappers have (a query a
+    version lacks is left out).  ``chip_smoke.py`` prints it for all four
+    libraries, ``--launch`` for the RNS and tower ones."""
+    from hbbft_tpu_torch.utils import cuda_build
+
+    ptxas = {name: [ln.strip() for ln in cuda_build.build_log(name).splitlines()
+                    if any(w in ln for w in ("Compiling entry", "registers", "spill", "error"))]
+             for name in sources}
+    for name, lines in ptxas.items():
+        for ln in lines:
+            log(f"  ptxas {name}: {ln}")
+    occ = {}
+    for name, mod, kinds in (("fq_rns", fq_rns_cuda, ("mul", "pow", "chain")),
+                             ("fq_limb", fq_limb_cuda, ("mul", "pow"))):
+        for kind in kinds if name in sources else ():
+            query = getattr(mod, f"{kind}_blocks_per_sm", None)
+            if query is not None:
+                occ[f"{name}_{kind}"] = query(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kernel in ("tower_op", "miller_dbl", "hard_exp") if "tower_fused" in sources else ():
+        if kernel in getattr(tower_fused_cuda, "_BLOCKS_PER_SM", {}):
+            occ[kernel] = tower_fused_cuda.resident_blocks(dev, kernel) // sms
+    log(f"occupancy, blocks of 128 threads per SM: {json.dumps(occ)} [{card_line(dev)}]")
+    return {"ptxas": ptxas, "blocks_per_sm": occ}
 
 
 def _launch_lanes(text: str) -> dict:

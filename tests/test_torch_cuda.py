@@ -149,17 +149,24 @@ def _packed(dev, rng, coeffs, n):
     return torch.as_tensor(rows[: coeffs * n].reshape(coeffs, n, R.NLIMBS), device=dev)
 
 
+#: tower_op's checked widths: one lane (most of each warp pass padding),
+#: around one warp's 16 tasks, a few groups, the epoch path's mean launch
+#: width (796 lanes, PERF.md) and a grid of 2 and 4 lanes a block with a
+#: ragged last block
+OP_WIDTHS = (1, 15, 16, 17, 33, 796, 2049)
+
+
+@pytest.mark.parametrize("n", OP_WIDTHS)
 @pytest.mark.parametrize("kind", TF.OP_KINDS)
-def test_tower_op_kernel_equals_plain(dev, kind):
-    rng = random.Random(13)
+def test_tower_op_kernel_equals_plain(dev, kind, n):
+    rng = random.Random(13 + n)
     idx, coeffs = TF.OP_KINDS.index(kind), TF._OP_BODY[kind][1]
-    for n in (1, 300, 1001):  # one lane, one lane per block, a ragged last block
-        a, b = _packed(dev, rng, coeffs, n), _packed(dev, rng, coeffs, n)
-        n0 = TK.tower_op.launches
-        got = TK.tower_op(idx, a, b)
-        torch.cuda.synchronize()
-        assert TK.tower_op.launches == n0 + 1
-        assert torch.equal(got, TF.op_plain(kind, a, b))
+    a, b = _packed(dev, rng, coeffs, n), _packed(dev, rng, coeffs, n)
+    n0 = TK.tower_op.launches
+    got = TK.tower_op(idx, a, b)
+    torch.cuda.synchronize()
+    assert TK.tower_op.launches == n0 + 1
+    assert torch.equal(got, TF.op_plain(kind, a, b))
 
 
 #: miller_dbl's checked widths besides one per lanes-per-block class: one
@@ -305,17 +312,52 @@ def test_limb_field_routes_through_the_kernels(dev):
     assert LK.mul.launches > 0 and LK.pow_fixed.launches == 1
 
 
-@pytest.mark.parametrize("chain", [0, 1, 5])
-def test_rns_chain_kernel_equals_plain(dev, chain):
-    a_np, va = _lazy(random.Random(20), 666)  # 1002 lanes: a ragged last block
-    b_np, vb = _lazy(random.Random(21), 666)
+#: fq_rns_chain's checked widths: one lane, one full group of 16, a
+#: ragged second group, one wave and a lane (4,096 lanes: 256 one-warp
+#: blocks), a ragged group at 2 warps a block (16,385 lanes: 1,025 groups,
+#: more than the H100's 792 resident blocks) and the kernel bench's mean
+#: launch width (87,040 lanes, 4 warps a block)
+CHAIN_WIDTHS = (1, 16, 17, 4097, 16385, 87040)
+
+
+def test_chain_widths_take_every_block_size(dev):
+    """The chain's widths cover each block size it launches: 1, 2 and 4
+    warps, each with its own grid and dynamic shared memory."""
+    resident = K.chain_blocks_per_sm(dev) * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    warps = [K.group_warps_per_block(n, resident) for n in CHAIN_WIDTHS]
+    assert warps[CHAIN_WIDTHS.index(16385)] == 2
+    assert set(warps) == {1, 2, 4}
+
+
+@pytest.mark.parametrize("n", CHAIN_WIDTHS)
+@pytest.mark.parametrize("chain", [0, 1, 200])
+def test_rns_chain_kernel_equals_plain(dev, chain, n):
+    """Bit-equal to the plain version (n = 0: loose(a)); 64 lanes against
+    Python ints mod Q."""
+    a_np, va = _lazy_n(random.Random(20 + n), n)
+    b_np, vb = _lazy_n(random.Random(21 + n), n)
     a, b = torch.as_tensor(a_np, device=dev), torch.as_tensor(b_np, device=dev)
     n0 = K.mul_chain.launches
     got = K.mul_chain(a, b, chain)
     torch.cuda.synchronize()
     assert K.mul_chain.launches == n0 + 1
     assert torch.equal(got, K.mul_chain_plain(a, b, chain))
-    assert R.to_ints(got) == [x * pow(y, chain, Q) % Q for x, y in zip(va, vb)]
+    assert R.to_ints(got[:64]) == [x * pow(y, chain, Q) % Q for x, y in zip(va[:64], vb[:64])]
+
+
+def test_constant_buffers_match_the_libraries(dev):
+    """Both libraries that run the body take the packed float vectors (no
+    extension matrices: 516 floats) and int8 planes the wrapper packs, and
+    every warp-body kernel's occupancy query answers."""
+    assert K._lib().fq_rns_const_floats() == K._KCONSTS.size == 516
+    assert TK._lib().tower_fused_const_floats() == K._KCONSTS.size
+    assert K._lib().fq_rns_tc_bytes() == TK._lib().tower_fused_tc_bytes() == K._KPLANES.size
+    for query in (K.mul_blocks_per_sm, K.pow_blocks_per_sm, K.chain_blocks_per_sm):
+        assert query(dev) >= 1
+    for kernel in ("tower_op", "miller_dbl", "hard_exp"):
+        assert TK.resident_blocks(dev, kernel) >= torch.cuda.get_device_properties(
+            dev).multi_processor_count
 
 
 def test_fma_probe_within_its_tolerance(dev):

@@ -208,11 +208,19 @@ def test_kernel_constants_match_the_library_layout():
     for name, expr in re.findall(r"#define (\w+) (.+?)(?:\s*//.*)?$", src, re.M):
         consts[name] = expr
     env: dict = {}
-    for name in ("NB", "NL", "NE", "OFF_E1", "OFF_E2", "OFF_P", "OFF_IP", "OFF_XOFF",
-                 "OFF_SIGC", "OFF_M1INV", "OFF_QM1INV", "OFF_W2INV", "OFF_PB1R",
-                 "OFF_IPB1R", "OFF_M2B1", "OFF_M2INVR", "N_CONSTS"):
+    for name in ("NB", "NL", "NE", "OFF_P", "OFF_IP", "OFF_XOFF", "OFF_SIGC", "OFF_M1INV",
+                 "OFF_QM1INV", "OFF_W2INV", "OFF_PB1R", "OFF_IPB1R", "OFF_M2B1",
+                 "OFF_M2INVR", "N_CONSTS"):
         env[name] = eval(consts[name], {}, dict(env))  # noqa: S307 (own source)
     assert env["N_CONSTS"] == fq_rns_cuda._KCONSTS.size
+    # the vectors start at 0 and are copied into shared memory as float4
+    assert env["OFF_P"] == 0 and env["N_CONSTS"] % 4 == 0
     k = fq_rns_cuda._KCONSTS
-    assert np.array_equal(k[env["OFF_P"] : env["OFF_P"] + env["NL"]], fq_rns_cuda._P)
-    assert np.array_equal(k[env["OFF_M2B1"] : env["OFF_M2B1"] + env["NB"]], fq_rns._M2_B1)
+    for off, want in (("OFF_P", fq_rns_cuda._P), ("OFF_IP", fq_rns_cuda._IP),
+                      ("OFF_XOFF", fq_rns_cuda._XOFF), ("OFF_SIGC", fq_rns._SIGMA_C_B1),
+                      ("OFF_M1INV", fq_rns._M1INV_B2R), ("OFF_QM1INV", fq_rns._QM1INV_B2R),
+                      ("OFF_W2INV", fq_rns._W2INV_B2), ("OFF_PB1R", fq_rns_cuda._PB1R),
+                      ("OFF_IPB1R", fq_rns_cuda._IPB1R), ("OFF_M2B1", fq_rns._M2_B1)):
+        want = np.asarray(want, dtype=np.float32)
+        assert np.array_equal(k[env[off] : env[off] + want.size], want), off
+    assert k[env["OFF_M2INVR"]] == np.float32(fq_rns_cuda._M2INV_R)

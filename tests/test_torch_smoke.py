@@ -60,13 +60,18 @@ def test_lazy_rows_carry_their_values(smoke):
 
 def test_bound_model(smoke):
     assert smoke.MUL_EW_OPS_REDUCED == 4250 and smoke.MUL_EW_OPS == 4882
-    assert smoke.MUL_TC_FLOPS == 25600
+    assert smoke.MUL_TC_OPS == 25600
     # one product per lane moves 3 rows: memory is the bound
     ms, by = smoke.bound(1 << 17, 1, smoke.MUL_EW_OPS, 3)
     assert by == "bytes" and ms == pytest.approx((1 << 17) * 3 * 316 / 3.35e12 * 1e3)
     # the Fermat chain does ~570 products on 2 rows: operations are
     ms, by = smoke.bound(4096, 570, 570 * smoke.MUL_EW_OPS_REDUCED, 2)
     assert by == "operations" and ms > 0
+    # the tensor cores and the float32 pipe overlap: the longer of the two
+    ms, by = smoke.roofline(0, 67e9, 1979e9)
+    assert by == "operations" and ms == pytest.approx(1.0)
+    ms, by = smoke.roofline(0, 67e9, 2 * 1979e9)
+    assert ms == pytest.approx(2.0)
 
 
 def test_main_phase_at_a_tiny_size(smoke, capsys):
