@@ -40,18 +40,34 @@ Phases (any failure exits non-zero and prints no result line):
              its verdicts, shares and plaintexts must equal the RNS arm's,
              the limb kernels must have launched and the RNS and fused
              kernels must not have.
+   sig path — the signature/coin crypto of one N=100 coin round on phase
+             3's keys: the round's 10k coin-share signings (a sample equal to
+             the host ``sign_share``), one 2^17-item engine chunk of share
+             verifies with planted forgeries, the round's 10k Lagrange
+             combines (k=34, no doc, as the engine calls them: every receiver
+             of an instance must get the same signature, a sample equal to
+             the host golden combine) and the 100 combined signatures' checks
+             (plus one tampered); verdicts exact.
 4. epoch   — the main path: whole N=100 HoneyBadger epochs through the
              port's ``ArrayHoneyBadgerNet`` on ``TorchBackend()``; every node
              must output the same Batch holding every contribution, and the
              native host kernels of the RS/Merkle plane must have been built.
+   coin epoch — one N=100 epoch with ``coin_rounds=1`` (binary agreement
+             on split inputs: one real threshold-sign coin round per
+             instance): the same Batch checks, the coin's counts in the
+             ``EpochReport`` (10,000 signs, 990,000 share verifies, 10,000
+             combines), the native hash-to-G2 built; then ``fq_rns_mul`` and
+             ``fq_rns_pow`` against their plain versions at the coin path's
+             mean and widest launches.
    bench   — the port's kernel bench (``hbbft_tpu_torch.tools.kernel_bench``)
              at its default widths: M muls/s of both field arms and the RNS
              chain, TFLOP/s of the FMA probe.
              Kernel launch counts are zeroed just before each of phases 3,
-             limb arm (in the child), 4 and bench, and read just after; every
-             kernel of the path must have launched.
+             limb arm (in the child), sig path, 4, coin epoch and bench, and
+             read just after; every kernel of the path must have launched.
 5. a ``{"kernels": [...]}`` line, one row per kernel: launches on its own
-   path (epoch, limb arm or bench), largest difference from the plain
+   path (epoch, limb arm or bench; the epoch kernels also carry their
+   launches on the coin epoch, ``coin_launches``), largest difference from the plain
    version (phase 2's widths and the path's), median kernel time at the
    path's mean launch width (``time_ms``: one call between two CUDA
    events; ``fq_rns_pow`` at the epoch's widest launch, no launch having
@@ -148,6 +164,12 @@ CHAIN_WIDTHS = (1, 1001, 16385, 65536)
 CHAIN_CHECK = 8  # products per checked chain launch
 #: the limb arm's share verifies: the stacked-arm pass's 2·N·(N−1) items
 LIMB_ARM_ITEMS = 2 * N * (N - 1)
+#: the coin epoch: one real coin round a BA instance (the split-input
+#: schedule)
+COIN_ROUNDS = 1
+#: host golden checks of the sig path: signature shares and instances sampled
+SIGN_SAMPLES = 100
+COMBINE_SAMPLES = 3
 
 #: the kernels, by the path whose launches each row reports
 EPOCH_KERNELS = ("fq_rns_mul", "fq_rns_pow", "tower_op", "miller_dbl", "hard_exp")
@@ -502,6 +524,85 @@ def phase_stacked_arm(state, n_items: int, device=None) -> dict:
             "dec_seconds": {"fused": fused_s, "stacked": stacked_s}}
 
 
+def phase_sig(backend, rng, state, verify_items: int, forged: int, card: str) -> dict:
+    """The signature/coin crypto of one coin round through the backend, on
+    phase 3's keys: every node's share of every instance's coin document,
+    one engine verify chunk with forged shares planted, every receiver's
+    combine (no doc, as the engine calls it) and the combined signatures'
+    checks (one tampered)."""
+    from hbbft_tpu_torch.crypto.keys import SignatureShare
+    from hbbft_tpu_torch.utils import canonical
+
+    n, f = state["n"], state["f"]
+    pks, sk_shares, pk_shares = state["pks"], state["sk_shares"], state["pk_shares"]
+    group = backend.group
+    secs = {}
+
+    @contextmanager
+    def timed(name):
+        t = time.perf_counter()
+        yield
+        secs[name] = time.perf_counter() - t
+
+    docs = [canonical.encode(("coin", 0, p, 0)) for p in range(n)]
+    sign_items = [(sk, docs[p]) for p in range(n) for sk in sk_shares]
+    with timed("sign_shares_batch"):
+        shares = backend.sign_shares_batch(sign_items)
+    for i in rng.sample(range(len(sign_items)), min(SIGN_SAMPLES, len(sign_items))):
+        sk, doc = sign_items[i]
+        if shares[i] != sk.sign_share(doc):
+            raise AssertionError(f"signature share {i} differs from the host sign_share")
+    log(f"sign_shares_batch: {len(shares)} shares, "
+        f"{min(SIGN_SAMPLES, len(sign_items))} sampled equal the host sign_share")
+
+    # one engine verify chunk: each (pk share, doc, share) object repeated
+    # for the n-1 receivers, with forged shares planted
+    distinct = [(pk_shares[s], docs[p], shares[p * n + s]) for p in range(n) for s in range(n)]
+    span = max(1, min(n, verify_items // (n * (n - 1))))
+    bad = {((j * 7) % span) * n + (j * 37 + 5) % n for j in range(forged)}
+    for d in bad:
+        pk, doc, share = distinct[d]
+        distinct[d] = (pk, doc, SignatureShare(group, group.g2_add(share.el, group.g2())))
+    items = [it for it in distinct for _ in range(n - 1)][:verify_items]
+    want = [i // (n - 1) not in bad for i in range(len(items))]
+    with timed("verify_sig_shares"):
+        got = backend.verify_sig_shares(items)
+    if got != want:
+        miss = sum(1 for g, w in zip(got, want) if g != w)
+        raise AssertionError(f"sig-share verdicts wrong on {miss} items")
+    log(f"verify_sig_shares: {len(items)} items, {want.count(False)} forged (from {len(bad)} "
+        f"distinct shares) all rejected, the rest accepted")
+
+    # every receiver combines the f+1 shares from its own index on
+    k = f + 1
+    combine_items = [
+        ({(r + j) % n: shares[p * n + (r + j) % n] for j in range(k)}, None)
+        for p in range(n) for r in range(n)
+    ]
+    with timed("combine_sig_shares_batch"):
+        sigs = backend.combine_sig_shares_batch(pks, combine_items)
+    for p in range(n):
+        if any(sig != sigs[p * n] for sig in sigs[p * n : (p + 1) * n]):
+            raise AssertionError(f"the receivers of instance {p} combined different signatures")
+    for p in rng.sample(range(n), COMBINE_SAMPLES):
+        if sigs[p * n] != pks.combine_signatures(combine_items[p * n][0]):
+            raise AssertionError(f"instance {p}'s signature differs from the host golden combine")
+    log(f"combine_sig_shares_batch: {len(sigs)} combines (k={k}), one signature per instance, "
+        f"{COMBINE_SAMPLES} sampled equal the host golden combine")
+
+    pk = pks.public_key()
+    sig_items = [(pk, docs[p], sigs[p * n]) for p in range(n)] + [(pk, docs[1], sigs[0])]
+    with timed("verify_signatures"):
+        ok = backend.verify_signatures(sig_items)
+    if ok != [True] * n + [False]:
+        raise AssertionError(f"signature verdicts wrong: {ok.count(False)} rejected")
+    log(f"verify_signatures: {n} combined signatures accepted, 1 tampered rejected")
+    log(f"sig path N={n}, f={f} [{card}]: seconds {json.dumps(secs)}")
+    return {"seconds": secs, "signs": len(shares), "verify_items": len(items),
+            "forged_items": want.count(False), "combines": len(sigs),
+            "signatures": len(sig_items)}
+
+
 def _enc(v):
     """A group element (affine int tuples, None at infinity) as JSON."""
     return None if v is None else hex(v) if isinstance(v, int) else [_enc(x) for x in v]
@@ -700,16 +801,18 @@ def phase_limb_arm(state, n_items: int, card: str) -> dict:
             "wall_seconds": wall, "items": n_items}
 
 
-def phase_epoch(backend, seed: int, n: int, epochs: int, card: str) -> dict:
+def phase_epoch(backend, seed: int, n: int, epochs: int, card: str, coin_rounds: int = 0) -> dict:
     """Whole N-node epochs through the port's engine: every node must output
-    the same Batch, holding every node's contribution."""
+    the same Batch, holding every node's contribution.  With
+    ``coin_rounds``, each epoch must also report the coin's counts and the
+    native hash-to-G2 must have been built."""
     import torch
 
     from hbbft_tpu_torch import native
     from hbbft_tpu_torch.engine.array_engine import ArrayHoneyBadgerNet
 
     t = time.perf_counter()
-    net = ArrayHoneyBadgerNet(range(n), backend=backend, seed=seed)
+    net = ArrayHoneyBadgerNet(range(n), backend=backend, seed=seed, coin_rounds=coin_rounds)
     setup = time.perf_counter() - t
     log(f"epoch setup (N={n} key generation on the host): {setup:.2f} s")
     out = {"setup_seconds": setup, "epochs": []}
@@ -728,12 +831,24 @@ def phase_epoch(backend, seed: int, n: int, epochs: int, card: str) -> dict:
             raise AssertionError("the Batch does not hold every contribution")
         rep = dataclasses.asdict(net.reports[-1])
         out["epochs"].append({"seconds": secs, "report": rep})
-        log(f"epoch {first.epoch} N={n} [{card}]: {secs:.3f} s, all {n} nodes output the "
-            f"same Batch of {len(first.contributions)} contributions")
+        log(f"epoch {first.epoch} N={n} coin_rounds={coin_rounds} [{card}]: {secs:.3f} s, all "
+            f"{n} nodes output the same Batch of {len(first.contributions)} contributions")
         log(f"  EpochReport: {json.dumps(rep)}")
-    # the RS/Merkle plane ran on the port's native C kernels, not hashlib
+        # the reference engine's accounting of a coin round: every node
+        # signs every instance's document (n²), every receiver checks every
+        # other sender's share (n²(n−1)) and combines once per instance (n²)
+        coin = tuple(rep[k] for k in ("coin_rounds", "coin_signs", "sig_shares_verified",
+                                      "sig_combines"))
+        want = (coin_rounds, coin_rounds * n * n, coin_rounds * n * n * (n - 1),
+                coin_rounds * n * n)
+        if coin != want:
+            raise AssertionError(f"the coin's counts are {coin}, not {want}")
+    # the RS/Merkle plane ran on the port's native C kernels, not hashlib,
+    # and the coin's documents on the native hash-to-G2
     if not (native.available() and native.sha256_available()):
         raise AssertionError("the native host kernels (gf256, sha256) were not built")
+    if coin_rounds and not native.hashg2_available():
+        raise AssertionError("the native hash-to-G2 kernel was not built")
     c = backend.counters.snapshot()
     out["device_dispatches"] = c["device_dispatches"]
     out["device_seconds"] = {k[len("device_seconds_"):]: v for k, v in c.items()
@@ -743,7 +858,8 @@ def phase_epoch(backend, seed: int, n: int, epochs: int, card: str) -> dict:
     out["counters"] = {k: c[k] for k in (
         "device_seconds", "host_seconds", "pairing_checks", "rlc_groups", "fused_tower_calls",
         "fused_chain_pallas_calls", "fused_chain_field_muls", "dec_shares_verified",
-        "ciphertexts_verified", "dec_shares_combined")}
+        "ciphertexts_verified", "dec_shares_combined", "sig_shares_verified",
+        "sig_shares_combined", "hash_g2_seconds")}
     log(f"epoch device_dispatches={c['device_dispatches']} [{card}]")
     log(f"epoch device seconds by kind [{card}]: {json.dumps(out['device_seconds'])}")
     log(f"epoch host buckets [{card}]: {json.dumps(out['host_buckets'])}")
@@ -763,6 +879,36 @@ def same(name: str, got, want) -> float:
     if not torch.equal(got, want):
         raise AssertionError(f"{name} differs from its plain version")
     return e
+
+
+def check_coin_widths(dev, rng, errs: dict, launches: dict, lanes: dict, widest: dict) -> dict:
+    """``fq_rns_mul`` and ``fq_rns_pow`` against their plain versions at the
+    coin epoch's mean and widest launch widths (rows beyond 65,536 repeat
+    65,536 distinct lazy rows); returns the widths checked."""
+    import torch
+
+    from hbbft_tpu_torch.crypto.field import Q
+    from hbbft_tpu_torch.ops import fq_rns as R, fq_rns_cuda as K
+
+    def rows(n):
+        base = torch.as_tensor(lazy_rows(rng, min(n, 1 << 16), R)[0], device=dev)
+        return base.repeat((-(-n // base.shape[0]), 1))[:n].contiguous()
+
+    checked = {}
+    for name in ("fq_rns_mul", "fq_rns_pow"):
+        mean = max(1, lanes[name] // max(1, launches[name]))
+        checked[name] = sorted({mean, widest[name]})
+        for n in checked[name]:
+            a = rows(n)
+            if name == "fq_rns_mul":
+                b = torch.flip(a, dims=(0,)).contiguous()
+                got, want = K.mul(a, b), K.mul_plain(a, b)
+            else:
+                got, want = K.pow_fixed(a, Q - 2), K.pow_plain(a, Q - 2)
+            errs[name] = max(errs[name], same(f"{name} (coin epoch, {n} lanes)", got, want))
+            del a, got, want
+            torch.cuda.empty_cache()
+    return checked
 
 
 def kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict, n_pow: int) -> list:
@@ -1140,6 +1286,14 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         limb_res = phase_limb_arm(state, LIMB_ARM_ITEMS, card)
         secs["limb_arm"] = time.perf_counter() - t
+
+        sig_backend = TorchBackend()
+        reset_launches()
+        t = time.perf_counter()
+        sig_res = phase_sig(sig_backend, rng, state, VERIFY_ITEMS, FORGED, card)
+        torch.cuda.synchronize()
+        secs["sig_path"] = time.perf_counter() - t
+        sig_res["launches"], sig_res["lanes"] = read_launches("the sig path", EPOCH_KERNELS)
         del state
 
         epoch_backend = TorchBackend()
@@ -1158,6 +1312,32 @@ def main(argv=None) -> int:
             f"widest launch {widest_pow} lanes")
         result["fq_rns_mul_broadcast_launches"] = K.mul.broadcast_launches
 
+        peak_before_coin = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        coin_backend = TorchBackend()
+        reset_launches()
+        t = time.perf_counter()
+        coin_res = phase_epoch(coin_backend, args.seed + 2, N, 1, card, coin_rounds=COIN_ROUNDS)
+        torch.cuda.synchronize()
+        secs["coin_epoch"] = time.perf_counter() - t
+        coin_launches, coin_lanes = read_launches(
+            f"the coin epoch (N={N}, coin_rounds={COIN_ROUNDS})", EPOCH_KERNELS)
+        coin_widest = {"fq_rns_mul": K.mul.widest, "fq_rns_pow": K.pow_fixed.widest}
+        coin_res.update(
+            launches=coin_launches, lanes=coin_lanes, widest=coin_widest,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+            launch_widths_log2={"fq_rns_mul": dict(sorted(K.mul.widths.items())),
+                                "fq_rns_pow": dict(sorted(K.pow_fixed.widths.items()))})
+        log(f"coin epoch [{card}]: phase seconds "
+            f"{json.dumps(coin_res['epochs'][0]['report']['phase_seconds'])}; peak device "
+            f"memory {coin_res['peak_memory_bytes']} bytes; widest launches "
+            f"{json.dumps(coin_widest)}; launch widths (key b: [2^(b-1), 2^b) lanes -> "
+            f"launches) {json.dumps(coin_res['launch_widths_log2'])}")
+        t = time.perf_counter()
+        coin_res["checked_widths"] = check_coin_widths(dev, rng, errs, coin_launches,
+                                                       coin_lanes, coin_widest)
+        secs["coin_widths"] = time.perf_counter() - t
+
         reset_launches()
         t = time.perf_counter()
         bench_res = kernel_bench.run(dev, log=log)
@@ -1168,6 +1348,8 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         rows = kernel_rows(dev, rng, errs, launches, lanes, widest_pow)
         rows += tower_kernel_rows(dev, rng, errs, launches, lanes)
+        for r in rows:  # the coin epoch's launches beside the two epochs'
+            r["coin_launches"] = coin_launches[r["name"]]
         rows += limb_kernel_rows(dev, rng, errs, limb_res["launches"], limb_res["lanes"])
         rows += bench_kernel_rows(dev, rng, args.seed, errs, bench_launches, bench_lanes,
                                   bench_res)
@@ -1186,11 +1368,13 @@ def main(argv=None) -> int:
     c = backend.counters
     result.update({
         "n": N, "f": (N - 1) // 3, "path": path_res, "path_launches": path_launches,
-        "stacked_arm": stacked_res, "limb_arm": limb_res, "epoch": epoch_res,
+        "stacked_arm": stacked_res, "limb_arm": limb_res, "sig_path": sig_res,
+        "epoch": epoch_res, "coin_epoch": coin_res,
         "bench": bench_res, "phase_seconds": secs,
         "path_device_dispatches": c.device_dispatches, "path_pairing_checks": c.pairing_checks,
         "path_rlc_groups": c.rlc_groups, "kernels": rows, "launch_widths_log2": widths,
-        "peak_memory_bytes": torch.cuda.max_memory_allocated(dev), "profile": prof,
+        "peak_memory_bytes": max(peak_before_coin, torch.cuda.max_memory_allocated(dev)),
+        "profile": prof,
     })
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(result, fh, indent=1)
@@ -1200,6 +1384,13 @@ def main(argv=None) -> int:
         f"{json.dumps([e['seconds'] for e in epoch_res['epochs']])}")
     log(f"limb arm N={N}, f={(N - 1) // 3} [{card}]: seconds "
         f"{json.dumps(limb_res['seconds'])}")
+    log(f"sig path N={N} [{card}]: seconds {json.dumps(sig_res['seconds'])}; launches "
+        f"{json.dumps(sig_res['launches'])}")
+    log(f"coin epoch N={N}, coin_rounds={COIN_ROUNDS} [{card}]: "
+        f"{coin_res['epochs'][0]['seconds']:.3f} s, phase seconds "
+        f"{json.dumps(coin_res['epochs'][0]['report']['phase_seconds'])}, device seconds "
+        f"{json.dumps(coin_res['device_seconds'])}, launches {json.dumps(coin_launches)}, "
+        f"lanes {json.dumps(coin_lanes)}, peak memory {coin_res['peak_memory_bytes']} bytes")
     log(f"phase seconds [{card}]: {json.dumps(secs)}")
     log(f"path device_dispatches={c.device_dispatches} pairing_checks={c.pairing_checks} "
         f"rlc_groups={c.rlc_groups} peak_memory_bytes={result['peak_memory_bytes']} [{card}]")

@@ -23,6 +23,8 @@ from hbbft_tpu_torch.crypto.keys import (
     PublicKeyShare,
     SecretKeySet,
     SecretKeyShare,
+    Signature,
+    SignatureShare,
 )
 from hbbft_tpu_torch.crypto.poly import Poly
 from hbbft_tpu_torch.ops import fq_limb, fq_rns
@@ -59,6 +61,15 @@ def ciphertext(ct) -> Ciphertext:
 
 def decryption_share(share) -> DecryptionShare:
     return DecryptionShare.from_bytes(_GROUP, share.to_bytes())
+
+
+def signature_share(share) -> SignatureShare:
+    """A signature share, through its compressed G2 encoding."""
+    return SignatureShare(_GROUP, _GROUP.g2_from_bytes(share.to_bytes()))
+
+
+def signature(sig) -> Signature:
+    return Signature.from_bytes(_GROUP, sig.to_bytes())
 
 
 def residues(arr, device=None) -> torch.Tensor:

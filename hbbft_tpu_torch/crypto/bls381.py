@@ -649,8 +649,16 @@ def _hash_to_g2_pure(data: bytes):
 
 
 def hash_to_g2(data: bytes):
-    """The pure-Python try-and-increment hash (the JAX package's native C
-    hash is not carried over; its points are identical to this path)."""
+    """The native C kernel when available (``native/hashg2_kernel.c``,
+    golden-checked against the pure path at first use), else the pure
+    try-and-increment path; ``HBBFT_TPU_NO_NATIVE_HASHG2=1`` forces the
+    pure path.  Both give the same points.  The pure path spends most of
+    its time in the affine cofactor clearing."""
+    from hbbft_tpu_torch import native
+
+    p = native.hashg2(data)
+    if p is not None:
+        return p
     return _hash_to_g2_pure(data)
 
 

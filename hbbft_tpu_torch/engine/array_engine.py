@@ -20,9 +20,11 @@ object runtime applies.
 **Protocol equivalence.** Under the lockstep schedule with honest nodes
 every threshold (N−f Echo, f+1/2f+1 BVal, 2f+1 Ready, N−f Aux/Conf)
 crosses for all receivers in the same round, every RBC decodes in the
-same round, and every BA instance decides ``true`` in its first round on
-the fixed coin.  The engine executes exactly those transitions, checking
-the thresholds it relies on with explicit raises, and produces the same
+same round, and every BA instance decides ``true`` on the fixed coin
+(in its first round, or after ``coin_rounds`` real threshold-sign coin
+rounds: the split-input schedule).  The engine executes exactly those
+transitions, checking the thresholds it relies on with explicit raises,
+and produces the same
 ``Batch`` values as the JAX package's engine (tests/test_torch_engine.py
 holds the two against each other).
 
@@ -36,11 +38,11 @@ emitted.  ``HBBFT_TPU_NO_HOSTPIPE=1`` restores the per-item loops and
 strictly ordered verification — Batches are bit-identical and
 ``device_dispatches`` unchanged either way.
 
-Carried by this slice of the port: ``run_epoch``/``run_epochs`` with the
-engine's defaults (``coin_rounds=0``, ``dynamic=False``).  Real coin rounds
-(slice 3: the signature/coin side), the DynamicHoneyBadger envelope, era
-change and checkpoint/restore (slice 4: the DKG) raise
-``NotImplementedError``.
+Carried by the port: ``run_epoch``/``run_epochs`` with ``dynamic=False``,
+with or without real coin rounds (``coin_rounds=R``: R threshold-sign
+rounds per epoch through the backend's signature/coin side).  The
+DynamicHoneyBadger envelope, era change and checkpoint/restore (the DKG
+slice) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -127,11 +129,6 @@ class ArrayHoneyBadgerNet:
         dynamic: bool = False,
         coin_rounds: int = 0,
     ) -> None:
-        if coin_rounds:
-            raise NotImplementedError(
-                "coin_rounds > 0 needs the signature/coin side of the backend "
-                "(port slice 3)"
-            )
         if dynamic:
             raise NotImplementedError(
                 "dynamic=True (the DynamicHoneyBadger envelope and its era "
@@ -151,6 +148,13 @@ class ArrayHoneyBadgerNet:
         )
         self.dedup_verifies = dedup_verifies
         self.verify_chunk = verify_chunk
+        #: real coin rounds per epoch: with coin_rounds=R every BA
+        #: instance runs R rounds whose conf_values stay {true, false}
+        #: (split inputs) and each invokes the threshold-sign coin: every
+        #: node signs the round nonce, broadcasts its share, verifies every
+        #: peer's share and Lagrange-combines f+1, before the definite
+        #: round decides
+        self.coin_rounds = coin_rounds
         self.epoch = 0
         self.counters = Counters()
         self.reports: List[EpochReport] = []
@@ -175,6 +179,7 @@ class ArrayHoneyBadgerNet:
         """Batched backend verification with chunking (device-batch sized)."""
         out: List[bool] = []
         fn = {
+            "sig": self.backend.verify_sig_shares,
             "dec": self.backend.verify_dec_shares,
             "ct": self.backend.verify_ciphertexts,
         }[kind]
@@ -189,6 +194,7 @@ class ArrayHoneyBadgerNet:
         this round's checks execute on device (cross-round pipelining;
         kill switch ``HBBFT_TPU_NO_HOSTPIPE=1`` routes around it)."""
         fn = {
+            "sig": self.backend.verify_sig_shares_deferred,
             "dec": self.backend.verify_dec_shares_deferred,
             "ct": self.backend.verify_ciphertexts_deferred,
         }[kind]
@@ -392,11 +398,18 @@ class ArrayHoneyBadgerNet:
         # ------ round 6: Conf quorum → coin ---------------------------------
         # binary_agreement.py: with unanimous inputs conf_values = {true}
         # is definite and equals the round-0 fixed coin → decide(true)
-        # immediately, no threshold-sign traffic (coin_rounds == 0).
+        # immediately, no threshold-sign traffic (coin_rounds == 0).  With
+        # coin_rounds=R the engine executes R REAL coin rounds first (the
+        # split-input schedule where conf_values stays {true, false}).
+        t_coin = clock()
+        for r in range(self.coin_rounds):
+            self._coin_round(rep, round_no=r)
+        if self.coin_rounds:
+            phase_s["coin"] = clock() - t_coin
         self._count_msgs(rep, n * n * (n - 1))  # Term
         rep.rounds += 1
         t_now = clock()
-        phase_s["ba"] = t_now - t_phase
+        phase_s["ba"] = (t_now - t_phase) - phase_s.get("coin", 0.0)
         t_phase = t_now
 
         # ------ round 7: ciphertext validation + decryption shares ---------
@@ -545,6 +558,115 @@ class ArrayHoneyBadgerNet:
         self.reports.append(rep)
         self.counters.cranks += rep.rounds
         return {nid: batch for nid in self.ids}
+
+    def _coin_round(self, rep: EpochReport, round_no: int) -> None:
+        """One real common-coin round across all N BA instances
+        (threshold_sign.py sign → verify → combine → parity, batched
+        network-wide).
+
+        Per BA round the full SBV exchange repeats (BVal, Aux, Conf) and
+        then every node broadcasts its coin share — 4×N²(N−1) messages.
+        Crypto, batched through the backend seam:
+
+        * sign:    N shares per instance (one x_s·H2(doc_p) G2 ladder each)
+        * verify:  every receiver checks every OTHER sender's share
+                   (N·(N−1) per instance; dedup mode: one representative)
+        * combine: every receiver Lagrange-combines f+1 verified shares
+                   (N per instance; dedup: 1) and takes sig.parity()
+
+        All receivers must derive the SAME bit — checked per instance.
+        Fast path (``hostpipe_enabled``): flat index arithmetic replaces
+        the per-instance share dicts, and the combine assembly overlaps
+        the deferred share verification.
+        """
+        bk = self.backend.buckets
+        fast = hostpipe_enabled()
+        n = self.n
+        with bk.region("encode"):
+            docs = [
+                canonical.encode(("coin", self.epoch, p_idx, round_no))
+                for p_idx in range(n)
+            ]
+        # SBV re-exchange for this BA round, then the share broadcast.
+        self._count_msgs(rep, 4 * n * n * (n - 1))  # BVal, Aux, Conf, share
+        with bk.region("assemble"):
+            sk_shares = [self.netinfos[s].secret_key_share for s in self.ids]
+            sign_items = [(sk, docs[p_idx]) for p_idx in range(n) for sk in sk_shares]
+        with bk.region("dispatch"):
+            shares_flat = self.backend.sign_shares_batch(sign_items)
+        rep.coin_signs += len(sign_items)
+        shares: Optional[List[Dict[int, Any]]] = None
+        if not fast:
+            with bk.region("scatter"):
+                shares = []
+                pos = 0
+                for p_idx in range(n):
+                    shares.append({s_idx: shares_flat[pos + s_idx] for s_idx in range(n)})
+                    pos += n
+        # per-receiver share verification (own share trusted).
+        reps = 1 if self.dedup_verifies else n - 1
+        with bk.region("assemble"):
+            if fast:
+                distinct = [
+                    (self.pk_shares[s_idx], docs[p_idx], shares_flat[p_idx * n + s_idx])
+                    for p_idx in range(n)
+                    for s_idx in range(n)
+                ]
+                items = [it for it in distinct for _ in range(reps)]
+            else:
+                items = []
+                for p_idx in range(n):
+                    for s_idx in range(n):
+                        item = (self.pk_shares[s_idx], docs[p_idx], shares[p_idx][s_idx])
+                        items.extend([item] * reps)
+        sig_resolve = None
+        if fast:
+            with bk.region("dispatch"):
+                sig_resolve = self._verify_deferred("sig", items)
+        else:
+            with bk.region("dispatch"):
+                ok = self._verify_batch("sig", items)
+            _require(all(ok), "array engine: honest coin share rejected")
+        rep.sig_shares_verified += len(items)
+        # per-receiver combine: receiver i uses the f+1 verified shares
+        # with the lowest indices starting at its own (subsets differ by
+        # receiver; the combined signature must not).
+        k = self.threshold + 1
+        with bk.region("assemble"):
+            combine_items = []
+            per_instance_slots: List[List[int]] = []
+            for p_idx in range(n):
+                slots = []
+                for recv in range(1 if self.dedup_verifies else n):
+                    if fast:
+                        chosen = {
+                            (recv + j) % n: shares_flat[p_idx * n + (recv + j) % n]
+                            for j in range(k)
+                        }
+                    else:
+                        chosen = {(recv + j) % n: shares[p_idx][(recv + j) % n] for j in range(k)}
+                    slots.append(len(combine_items))
+                    combine_items.append((chosen, None))
+                per_instance_slots.append(slots)
+        sigs = []
+        with bk.region("dispatch"):
+            for i in range(0, len(combine_items), self.verify_chunk):
+                sigs.extend(
+                    self.backend.combine_sig_shares_batch(
+                        self.pk_set, combine_items[i : i + self.verify_chunk]
+                    )
+                )
+        rep.sig_combines += len(combine_items)
+        if sig_resolve is not None:
+            with bk.region("dispatch"):
+                ok = sig_resolve()
+            _require(all(ok), "array engine: honest coin share rejected")
+        with bk.region("scatter"):
+            for p_idx in range(n):
+                bits = {sigs[slot].parity() for slot in per_instance_slots[p_idx]}
+                _require(len(bits) == 1, "array engine: coin bit disagreement")
+        rep.coin_rounds += 1
+        rep.rounds += 1
 
     def era_change(self) -> EpochReport:
         """Validator turnover (vote → DKG → new era): not in this slice."""

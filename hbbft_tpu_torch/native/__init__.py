@@ -1,15 +1,17 @@
-"""Native (C) host kernels of the erasure/hash plane, built on first use.
+"""Native (C) host kernels, built on first use.
 
-The port's copy of the JAX package's ``native/`` loaders for the two
-kernels the array engine's RS/Merkle plane calls: ``gf256_kernel.c``
-(GF(2⁸) Reed–Solomon matmul) and ``sha256_kernel.c`` (batched SHA-256,
-Merkle proof validation and root building).  Each source is compiled by
-the host C compiler (``cc -O3 -march=native``) into
+The port's copy of the JAX package's ``native/`` loaders for three
+kernels: ``gf256_kernel.c`` (GF(2⁸) Reed–Solomon matmul) and
+``sha256_kernel.c`` (batched SHA-256, Merkle proof validation and root
+building), which the array engine's RS/Merkle plane calls, and
+``hashg2_kernel.c`` (hash-to-G2, behind ``crypto/bls381.hash_to_g2``),
+which the coin's signing and share checks call.  Each source is compiled
+by the host C compiler (``cc -O3 -march=native``) into
 ``hbbft_tpu_torch/_build/`` (listed in ``.gitignore``), named by the host
 ISA and a hash of the source, and bound with ctypes.  Nothing is built at
 import.  Where no compiler is available the callers fall back to their
-numpy/hashlib paths; ``available()`` and ``sha256_available()`` say which
-ran.
+numpy/hashlib/pure-Python paths; ``available()``, ``sha256_available()``
+and ``hashg2_available()`` say which ran.
 """
 
 from __future__ import annotations
@@ -194,3 +196,51 @@ def merkle_root_batch(leaves: np.ndarray, size: int, reps: int) -> Optional[np.n
     out = np.empty((t, 32), dtype=np.uint8)
     lib.merkle_root_batch(leaves, t, n_leaves, leaf_len, size, int(reps), out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# hash-to-G2 (hashg2_kernel.c)
+# ---------------------------------------------------------------------------
+
+#: golden probes: the native hash must give the pure path's points on these
+HASHG2_PROBES = (b"", b"g2-golden-0", b"g2-golden-1", bytes(range(97)))
+
+
+def _hashg2_call(lib: ctypes.CDLL, data: bytes):
+    out = np.empty(24, dtype=np.uint64)
+    buf = np.frombuffer(data, dtype=np.uint8) if data else np.empty(0, np.uint8)
+    if lib.hashg2_one(np.ascontiguousarray(buf), len(data), out) != 0:
+        return None
+    v = [sum(int(x) << (64 * i) for i, x in enumerate(out[o : o + 6])) for o in range(0, 24, 6)]
+    return ((v[0], v[1]), (v[2], v[3]))
+
+
+def _bind_hashg2(lib: ctypes.CDLL) -> Optional[ctypes.CDLL]:
+    lib.hashg2_one.argtypes = [_U8P, _L, np.ctypeslib.ndpointer(dtype=np.uint64,
+                                                                flags="C_CONTIGUOUS")]
+    lib.hashg2_one.restype = ctypes.c_int
+    # Golden check against the pure path: the two must be interchangeable
+    # point for point, or the native kernel is not used.
+    from hbbft_tpu_torch.crypto.bls381 import _hash_to_g2_pure
+
+    for probe in HASHG2_PROBES:
+        if _hashg2_call(lib, probe) != _hash_to_g2_pure(probe):
+            return None
+    return lib
+
+
+def hashg2_available() -> bool:
+    """Whether the hash-to-G2 kernel is built, loaded and golden-checked."""
+    return _load("hashg2_kernel", _bind_hashg2) is not None
+
+
+def hashg2(data: bytes):
+    """Hash-to-G2 via the C kernel: ((x0, x1), (y0, y1)) ints, or None if
+    the kernel is unavailable or switched off (``HBBFT_TPU_NO_NATIVE_HASHG2=1``,
+    read per call, forces the pure path)."""
+    if os.environ.get("HBBFT_TPU_NO_NATIVE_HASHG2"):
+        return None
+    lib = _load("hashg2_kernel", _bind_hashg2)
+    if lib is None:
+        return None
+    return _hashg2_call(lib, data)

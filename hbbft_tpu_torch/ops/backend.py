@@ -1,5 +1,6 @@
 """TorchBackend — batched device crypto behind the CryptoBackend seam (the
-JAX package's ``TpuBackend``, threshold-decryption path).
+JAX package's ``TpuBackend``: the threshold-decryption and signature/coin
+paths).
 
 The protocols hand whole *batches* of pairing checks and share
 combinations to this backend, which resolves them in a handful of device
@@ -7,11 +8,13 @@ dispatches instead of per-share host loops.  Every verification equation
 has the shape ``e(a1, b1) == e(a2, b2)``, i.e.
 ``FE(ML(a1, b1)·ML(−a2, b2)) == 1``:
 
+* sig share:    e(G1, σ_i)  == e(PK_i, H2(doc))
+* full sig:     e(G1, σ)    == e(PK, H2(msg))
 * dec share:    e(D_i, H)   == e(PK_i, W)
 * ciphertext:   e(G1, W)    == e(U, H)
 
 so ONE composition — two batched Miller loops + one shared final
-exponentiation (``pairing.product2_fast``) — serves both.  Batches are
+exponentiation (``pairing.product2_fast``) — serves all four.  Batches are
 padded to power-of-two buckets with trivially-true items.  Hash-to-curve
 and the canonical ``== 1`` comparison run on the host.
 
@@ -25,10 +28,11 @@ every field product inside them runs through the kernels of
 tower kernels (``ops/pairing_chain.py``) unless
 ``HBBFT_TPU_NO_FUSED_TOWER=1`` — resolved per dispatch and billed by
 ``_bill_chain``.  ``g1_mul_batch``/``g2_mul_batch`` (the batched
-threshold encryption of the array engine) ride the same ladders as
-decryption-share generation.  The signature/coin paths and the DKG are
-not ported yet: those ``CryptoBackend`` methods run the seam's per-item
-host defaults (crypto/backend.py), never a device path.
+threshold encryption of the array engine) and ``sign_shares_batch`` (the
+coin's shares) ride the same ladders as decryption-share generation; the
+signature and decryption combines share one Lagrange chunk body.  The
+DKG's ``g1_lincomb`` is not ported yet: it runs the seam's host default
+(crypto/backend.py).
 
 The RLC coefficients are drawn from the OS CSPRNG (``os.urandom``): a
 seeded generator would make them predictable and void the batch check.
@@ -40,7 +44,7 @@ import functools
 import os
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,9 +58,11 @@ from hbbft_tpu_torch.crypto.keys import (
     DecryptionShare,
     PublicKeySet,
     PublicKeyShare,
+    Signature,
+    SignatureShare,
 )
 from hbbft_tpu_torch.ops import curve, pairing, pairing_chain
-from hbbft_tpu_torch.ops.pipeline import DispatchPipeline, fetch_to_host
+from hbbft_tpu_torch.ops.pipeline import DispatchPipeline, fetch_to_host, hostpipe_enabled
 from hbbft_tpu_torch.ops.staging import StagingCache
 from hbbft_tpu_torch.utils.device import resolve
 from hbbft_tpu_torch.utils.tree import tree_map
@@ -76,6 +82,32 @@ def _squeeze_point(P):
     return tree_map(lambda c: c[:, 0], P)
 
 
+def _pad_zero_rows(bits, negs, pad: int):
+    """Pad prepared ladder rows with zero-scalar lanes (0·∞ contributes
+    the identity): a zero scalar's rows and sign flags are all-zero in
+    both the classic and the GLV/GLS form, so no decomposition is billed
+    for the padding."""
+    if pad <= 0:
+        return bits, negs
+    bits = np.concatenate([bits, np.zeros((pad,) + bits.shape[1:], dtype=bits.dtype)])
+    negs = np.concatenate([negs, np.zeros((pad,) + negs.shape[1:], dtype=negs.dtype)])
+    return bits, negs
+
+
+def _rlc_sig(S, PK, rbits, negG1, H, fused=None):
+    """Grouped sig-share check: e(G1, Σr·σ_i) == e(Σr·PK_i, H) per group.
+    S: (G, k) Jacobian G2 shares, PK: (G, k) Jacobian G1 key shares,
+    rbits (G, k, RLC_BITS), negG1 and H (G,) affine.  The device graph of
+    the check, a plain function; ``fused`` routes its pairing as
+    ``pairing.product2_fast`` does."""
+    zeros = torch.zeros(rbits.shape[:2], dtype=torch.bool, device=rbits.device)
+    comb_s = curve.linear_combine_g2(S, rbits, zeros)
+    comb_pk = curve.linear_combine_g1(PK, rbits, zeros)
+    s_aff = curve.jac_to_affine_g2(_squeeze_point(comb_s))
+    pk_aff = curve.jac_to_affine_g1(_squeeze_point(comb_pk))
+    return pairing.product2_fast(negG1, s_aff, pk_aff, H, fused=fused)
+
+
 def _rlc_dec(D, PK, H, W, rbits, fused=None):
     """Grouped dec-share check: e(Σr·D_i, H) == e(Σr·PK_i, W) per group.
     D, PK: (G, k) Jacobian G1; H, W (G,) affine G2; rbits (G, k, RLC_BITS).
@@ -91,12 +123,21 @@ def _rlc_dec(D, PK, H, W, rbits, fused=None):
     return pairing.product2_fast(d_aff, H, neg_pk, W, fused=fused)
 
 
-#: (to_device, from_device, ladder, scalar prep) of the batched G1 and G2
-#: independent-ladder dispatches
-_G1_LADDER = (curve.g1_to_device, curve.g1_from_device, curve.g1_scalar_mul_signed,
-              curve.prep_g1_scalars)
-_G2_LADDER = (curve.g2_to_device, curve.g2_from_device, curve.g2_scalar_mul_signed,
-              curve.prep_g2_scalars)
+class _Ladders(NamedTuple):
+    """One group's device operations: staging, readback, the batched
+    independent ladders, the scalar prep and the Lagrange linear combine."""
+
+    to_device: Callable
+    from_device: Callable
+    mul: Callable
+    prep: Callable
+    combine: Callable
+
+
+_G1_LADDER = _Ladders(curve.g1_to_device, curve.g1_from_device, curve.g1_scalar_mul_signed,
+                      curve.prep_g1_scalars, curve.linear_combine_g1)
+_G2_LADDER = _Ladders(curve.g2_to_device, curve.g2_from_device, curve.g2_scalar_mul_signed,
+                      curve.prep_g2_scalars, curve.linear_combine_g2)
 
 
 class TorchBackend(CryptoBackend):
@@ -176,14 +217,15 @@ class TorchBackend(CryptoBackend):
         """Stage ``points`` with identity-deduplicated conversion: the
         engine replicates the SAME point objects across receivers, so the
         residue conversion runs per DISTINCT object and the full-width
-        rows are rebuilt by one numpy gather per coordinate plane."""
+        rows are rebuilt by one numpy gather per coordinate plane.
+        ``HBBFT_TPU_NO_HOSTPIPE=1``: a straight per-lane conversion."""
 
         def conv(pts, gather=None):
             if transform is not None:
                 pts = [transform(p) if p is not None else None for p in pts]
             return to_device(pts, cache=self._stage, gather=gather, device=self.device)
 
-        if len(points) <= 1:
+        if not hostpipe_enabled() or len(points) <= 1:
             return conv(list(points))
         index: Dict[Any, int] = {}
         order: List[Any] = []
@@ -468,6 +510,84 @@ class TorchBackend(CryptoBackend):
 
     # -- batched verification ------------------------------------------------
 
+    def verify_sig_shares(
+        self, items: Sequence[Tuple[PublicKeyShare, bytes, SignatureShare]]
+    ) -> List[bool]:
+        return self._verify_sig_shares_impl(items, deferred=False)
+
+    def verify_sig_shares_deferred(
+        self, items: Sequence[Tuple[PublicKeyShare, bytes, SignatureShare]]
+    ):
+        """Submit now, resolve later: the returned resolver yields the same
+        booleans ``verify_sig_shares`` would, with identical dispatch counts."""
+        return self._verify_sig_shares_impl(items, deferred=True)
+
+    def _verify_sig_shares_impl(self, items, deferred: bool):
+        g1 = self.group.g1()
+
+        def direct(item):
+            pk, doc, share = item
+            return (g1, share.el, pk.el, self._hash_g2(doc))
+
+        self.counters.sig_shares_verified += len(items)
+        results: List[Optional[bool]] = [None] * len(items)
+
+        by_doc: Dict[bytes, List[int]] = {}
+        for i, (pk, doc, share) in enumerate(items):
+            by_doc.setdefault(doc, []).append(i)
+        rlc_groups = [g for g in by_doc.values() if len(g) >= self.rlc_min_group]
+        direct_idx = [i for g in by_doc.values() if len(g) < self.rlc_min_group for i in g]
+
+        if direct_idx:
+            self._check_batch_async(
+                [direct(items[i]) for i in direct_idx],
+                lambda j, ok, idx=tuple(direct_idx): results.__setitem__(idx[j], ok),
+            )
+
+        def build(padded, g, k):
+            flat = [i for grp in padded for i in grp]
+            S_jac = self._reshape_groups(
+                self._to_device_gather(
+                    [items[i][2].el if i is not None else None for i in flat],
+                    curve.g2_to_device,
+                ),
+                g, k,
+            )
+            PK_jac = self._reshape_groups(
+                self._to_device_gather(
+                    [items[i][0].el if i is not None else None for i in flat],
+                    curve.g1_to_device,
+                ),
+                g, k,
+            )
+            neg_g1 = pairing.g1_affine_to_device(
+                [self.group.g1_neg(g1)] * g, cache=self._stage, device=self.device
+            )
+            hs = []
+            for gi in range(g):
+                first = next((i for i in padded[gi] if i is not None), None)
+                hs.append(self._hash_g2(items[first][1]) if first is not None else None)
+            H = pairing.g2_affine_to_device(hs, cache=self._stage, device=self.device)
+            return (S_jac, PK_jac, neg_g1, H)
+
+        def rlc(S_jac, PK_jac, neg_g1, H, rbits):
+            fused = pairing_chain.fused_tower_mode()
+            self._bill_chain(fused, rbits.shape[0])
+            return _rlc_sig(S_jac, PK_jac, rbits, neg_g1, H, fused=fused)
+
+        cont = self._grouped_rlc(
+            rlc_groups, items, build, rlc, results, direct, kind="rlc_sig",
+            deferred=deferred,
+        )
+        return self._finish_verify(results, cont, deferred)
+
+    def verify_signatures(self, items: Sequence[Tuple[Any, bytes, Signature]]) -> List[bool]:
+        self.counters.signatures_verified += len(items)
+        g1 = self.group.g1()
+        return self._check_batch(
+            [(g1, sig.el, pk.el, self._hash_g2(msg)) for pk, msg, sig in items]
+        )
+
     def verify_dec_shares(
         self, items: Sequence[Tuple[PublicKeyShare, Ciphertext, DecryptionShare]]
     ) -> List[bool]:
@@ -566,11 +686,78 @@ class TorchBackend(CryptoBackend):
 
     # -- combination ---------------------------------------------------------
 
+    def _lagrange_device(self, pts: List[Tuple[int, Any]], ladder):
+        """One Lagrange combine Σλ_i·P_i in one synchronous dispatch, at a
+        bucket-padded width (∞ points and zero-scalar rows contribute the
+        identity).  ``ladder`` is ``_G1_LADDER`` or ``_G2_LADDER``."""
+        with self._host_assembly():
+            lam = lagrange_coeffs_at_zero([x for x, _ in pts])
+            args = self._stage_combine(lam, [el for _, el in pts], ladder)
+        combined = self._dispatch_fetch(ladder.combine, args, kind="combine", items=len(pts))
+        return ladder.from_device(combined)[0]
+
+    def _stage_combine(self, coeffs, point_els, ladder):
+        """Staging of a single combine: bucket-pad points with ∞ and
+        coefficients with zero-scalar rows, prep through the GLV/classic
+        seam, and bill the ladder accounting."""
+        b = _bucket(len(point_els))
+        pts = list(point_els) + [None] * (b - len(point_els))
+        bits, negs = self._prep_scalars(ladder.prep, list(coeffs))
+        bits, negs = _pad_zero_rows(bits, negs, b - len(point_els))
+        self._count_ladder(bits, len(point_els), glv=bits.ndim == 3)
+        P = ladder.to_device(pts, cache=self._stage, device=self.device)
+        return (P, self._tensor(bits), self._tensor(negs))
+
+    def combine_signatures(
+        self,
+        pk_set: PublicKeySet,
+        shares: Dict[int, SignatureShare],
+        doc: Optional[bytes] = None,
+    ) -> Signature:
+        """One device combine; with a ``doc``, one pairing check of the
+        result against the master key, and the host golden combine if it
+        fails."""
+        if len(shares) <= pk_set.threshold():
+            raise CryptoError(f"need {pk_set.threshold() + 1} shares, got {len(shares)}")
+        self.counters.sig_shares_combined += len(shares)
+        if len(shares) < self.device_combine_threshold:
+            return pk_set.combine_signatures(shares)
+        pts = [(i + 1, s.el) for i, s in sorted(shares.items())]
+        self.counters.device_dispatches += 1
+        sig = Signature(self.group, self._lagrange_device(pts, _G2_LADDER))
+        if doc is not None:
+            pk = pk_set.public_key()
+            ok = self._check_batch([(self.group.g1(), sig.el, pk.el, self._hash_g2(doc))])
+            if not ok[0]:
+                return pk_set.combine_signatures(shares)
+        return sig
+
+    def combine_decryption_shares(
+        self, pk_set: PublicKeySet, shares: Dict[int, DecryptionShare], ct: Ciphertext
+    ) -> bytes:
+        if len(shares) <= pk_set.threshold():
+            raise CryptoError(f"need {pk_set.threshold() + 1} shares, got {len(shares)}")
+        self.counters.dec_shares_combined += len(shares)
+        if len(shares) < self.device_combine_threshold:
+            return pk_set.combine_decryption_shares(shares, ct)
+        pts = [(i + 1, s.el) for i, s in sorted(shares.items())]
+        self.counters.device_dispatches += 1
+        return self._plaintext_from_combined(self._lagrange_device(pts, _G1_LADDER), ct)
+
     def _plaintext_from_combined(self, combined, ct: Ciphertext) -> bytes:
         """Shared tail of threshold decryption: pad = H(s·PK), v ⊕ pad."""
         g = self.group
         pad = g.hash_bytes(g.g1_to_bytes(combined), len(ct.v))
         return bytes(a ^ b for a, b in zip(ct.v, pad))
+
+    def _group_by_k(self, pk_set: PublicKeySet, share_dicts) -> Dict[int, List[int]]:
+        """Item indices by share count; raises on an item below threshold."""
+        by_k: Dict[int, List[int]] = {}
+        for idx, shares in enumerate(share_dicts):
+            if len(shares) <= pk_set.threshold():
+                raise CryptoError(f"need {pk_set.threshold() + 1} shares, got {len(shares)}")
+            by_k.setdefault(len(shares), []).append(idx)
+        return by_k
 
     def combine_dec_shares_batch(
         self,
@@ -581,12 +768,7 @@ class TorchBackend(CryptoBackend):
         share-count group: a (B, k) Lagrange linear combination over the
         item axis, padded to power-of-two B buckets."""
         out: List[Optional[bytes]] = [None] * len(items)
-        by_k: Dict[int, List[int]] = {}
-        for idx, (shares, _ct) in enumerate(items):
-            if len(shares) <= pk_set.threshold():
-                raise CryptoError(f"need {pk_set.threshold() + 1} shares, got {len(shares)}")
-            by_k.setdefault(len(shares), []).append(idx)
-        for k, all_idxs in by_k.items():
+        for k, all_idxs in self._group_by_k(pk_set, [sh for sh, _ in items]).items():
             self.counters.dec_shares_combined += k * len(all_idxs)
             # gate on TOTAL ladder lanes (k shares × items)
             if k * len(all_idxs) < self.device_combine_threshold:
@@ -606,16 +788,62 @@ class TorchBackend(CryptoBackend):
             for idx, el in zip(idxs, els[: len(idxs)]):
                 out[idx] = self._plaintext_from_combined(el, items[idx][1])
 
-        self._lagrange_chunk([items[idx][0] for idx in idxs], k, deliver)
+        self._lagrange_chunk([items[idx][0] for idx in idxs], k, _G1_LADDER, deliver)
 
-    def _combine_prep(self, idxs: Tuple[int, ...]):
+    def combine_sig_shares_batch(
+        self,
+        pk_set: PublicKeySet,
+        items: Sequence[Tuple[Dict[int, SignatureShare], Optional[bytes]]],
+    ) -> List[Signature]:
+        """All signature combines, grouped and lane-capped as
+        ``combine_dec_shares_batch``; device-combined items whose doc is
+        not None get one batched re-verify against the master key, with
+        the host golden combine on a mismatch (as ``combine_signatures``)."""
+        out: List[Optional[Signature]] = [None] * len(items)
+        device_idxs: List[int] = []
+        for k, all_idxs in self._group_by_k(pk_set, [sh for sh, _ in items]).items():
+            self.counters.sig_shares_combined += k * len(all_idxs)
+            if k * len(all_idxs) < self.device_combine_threshold:
+                for idx in all_idxs:
+                    out[idx] = pk_set.combine_signatures(items[idx][0])
+                continue
+            device_idxs.extend(all_idxs)
+            step = self._lane_capped_step(k)
+            for lo in range(0, len(all_idxs), step):
+                self._combine_sig_chunk(items, all_idxs[lo : lo + step], k, out)
+        self._pipe.flush()
+        check_idx = [i for i in device_idxs if items[i][1] is not None]
+        if check_idx:
+            g1 = self.group.g1()
+            pk = pk_set.public_key()
+            ok = self._check_batch(
+                [(g1, out[i].el, pk.el, self._hash_g2(items[i][1])) for i in check_idx]
+            )
+            for i, good in zip(check_idx, ok):
+                if not good:
+                    out[i] = pk_set.combine_signatures(items[i][0])
+        return out  # type: ignore[return-value]
+
+    def _combine_sig_chunk(self, items, idxs, k, out) -> None:
+        def deliver(combined, idxs=tuple(idxs)):
+            els = curve.g2_from_device(_squeeze_point(combined))
+            for idx, el in zip(idxs, els[: len(idxs)]):
+                out[idx] = Signature(self.group, el)
+
+        self._lagrange_chunk([items[idx][0] for idx in idxs], k, _G2_LADDER, deliver)
+
+    def _combine_prep(self, idxs: Tuple[int, ...], prep):
         """Memoized (bits, negs) ladder form of the Lagrange coefficients
-        over share indices ``idxs`` (0-based) and the GLV arm."""
-        key = (idxs, curve.glv_enabled())
+        over share indices ``idxs`` (0-based), keyed on the group's prep
+        and the GLV arm.  ``HBBFT_TPU_NO_HOSTPIPE=1`` bypasses the memo
+        (each item's decomposition is run and billed)."""
+        if not hostpipe_enabled():
+            return self._prep_scalars(prep, lagrange_coeffs_at_zero([i + 1 for i in idxs]))
+        key = (prep, idxs, curve.glv_enabled())
         hit = self._prep_memo.get(key)
         if hit is None:
             lam = lagrange_coeffs_at_zero([i + 1 for i in idxs])
-            hit = self._prep_scalars(curve.prep_g1_scalars, lam)
+            hit = self._prep_scalars(prep, lam)
             if len(self._prep_memo) >= 4096:
                 self._prep_memo.clear()
             self._prep_memo[key] = hit
@@ -629,9 +857,12 @@ class TorchBackend(CryptoBackend):
             step = 1 << (step.bit_length() - 1)
         return max(step, _bucket(1))
 
-    def _lagrange_chunk(self, share_dicts, k, on_result):
+    def _lagrange_chunk(self, share_dicts, k, ladder, on_result):
         """(B, k) point tree + per-item coefficient rows, padded with copies
-        of the first item (discarded) to a power-of-two item bucket."""
+        of the first item (discarded) to a power-of-two item bucket, in one
+        deferred dispatch of the group's linear combine.  ``ladder`` is
+        ``_G1_LADDER`` (decryption shares) or ``_G2_LADDER`` (signature
+        shares)."""
         with self._host_assembly():
             b = _bucket(len(share_dicts))
             flat_pts: List[Any] = []
@@ -640,21 +871,21 @@ class TorchBackend(CryptoBackend):
             for shares in share_dicts:
                 srt = sorted(shares.items())
                 flat_pts.extend(s.el for _, s in srt)
-                row_bits, row_negs = self._combine_prep(tuple(i for i, _ in srt))
+                row_bits, row_negs = self._combine_prep(tuple(i for i, _ in srt), ladder.prep)
                 bits_rows.append(row_bits)
                 negs_rows.append(row_negs)
             pad = b - len(share_dicts)
             flat_pts.extend(flat_pts[:k] * pad)
             bits_rows.extend([bits_rows[0]] * pad)
             negs_rows.extend([negs_rows[0]] * pad)
-            P = self._to_device_gather(flat_pts, curve.g1_to_device)
+            P = self._to_device_gather(flat_pts, ladder.to_device)
             P = tree_map(lambda c: c.reshape((b, k) + tuple(c.shape[1:])), P)
             bits = self._tensor(np.stack(bits_rows))
             negs = self._tensor(np.stack(negs_rows))
         self._count_ladder(bits_rows[0], len(share_dicts) * k, glv=bits_rows[0].ndim == 3)
         self.counters.device_dispatches += 1
         return self._dispatch_async(
-            curve.linear_combine_g1, (P, bits, negs), kind="combine", items=len(share_dicts),
+            ladder.combine, (P, bits, negs), kind="combine", items=len(share_dicts),
             on_result=on_result,
         )
 
@@ -696,6 +927,21 @@ class TorchBackend(CryptoBackend):
             _G2_LADDER, kind=kind,
         )
 
+    def sign_shares_batch(self, items: Sequence[Tuple[Any, bytes]]) -> List[SignatureShare]:
+        """All coin-share generations x_i·H2(doc) as batched G2 ladders
+        (H2(doc) has order r: hash_to_g2 clears the cofactor)."""
+        els = self._ladder_batch(
+            [sk.x for sk, _ in items],
+            [self._hash_g2(doc) for _, doc in items],
+            lambda i: items[i][0].sign_share(items[i][1]),
+            _G2_LADDER,
+            kind="sign",
+        )
+        return [
+            el if isinstance(el, SignatureShare) else SignatureShare(self.group, el)
+            for el in els
+        ]
+
     def _ladder_batch(self, scalars, points, host_fn, ladder, kind=""):
         """Threshold gate → lane-capped pipelined chunk loop → bucket pad →
         deferred-fetch dispatch per chunk; ``host_fn(i)`` serves batches
@@ -717,22 +963,21 @@ class TorchBackend(CryptoBackend):
         return out
 
     def _submit_ladder_chunk(self, scalars, points, base, out, ladder, kind) -> None:
-        to_device, from_device, fn, prep = ladder
         n = len(scalars)
         with self._host_assembly():
             b = _bucket(n)
-            bits, negs = self._prep_scalars(prep, list(scalars))
+            bits, negs = self._prep_scalars(ladder.prep, list(scalars))
             pts = list(points)
             if b > n:
                 bits = np.concatenate([bits, np.repeat(bits[:1], b - n, axis=0)])
                 negs = np.concatenate([negs, np.repeat(negs[:1], b - n, axis=0)])
                 pts = pts + [pts[0]] * (b - n)
-            P = self._to_device_gather(pts, to_device)
+            P = self._to_device_gather(pts, ladder.to_device)
             args = (P, self._tensor(bits), self._tensor(negs))
         self._count_ladder(bits, n, glv=bits.ndim == 3)
         self.counters.device_dispatches += 1
 
         def deliver(fetched, base=base, n=n):
-            out[base : base + n] = from_device(fetched)[:n]
+            out[base : base + n] = ladder.from_device(fetched)[:n]
 
-        self._dispatch_async(fn, args, kind=kind, items=n, on_result=deliver)
+        self._dispatch_async(ladder.mul, args, kind=kind, items=n, on_result=deliver)

@@ -303,6 +303,7 @@ def mul(a: torch.Tensor, b: torch.Tensor, reduced: bool = False) -> torch.Tensor
     mul.launches += 1
     mul.lanes += n
     mul.widths[n.bit_length()] += 1
+    mul.widest = max(mul.widest, n)
     if n > 1 and not (sa and sb):
         mul.broadcast_launches += 1
     return out
@@ -358,6 +359,7 @@ mul.launches = 0
 mul.broadcast_launches = 0  # launches with a one-row operand read at lane stride 0
 mul.lanes = 0  # lanes over all launches (lanes / launches = mean launch width)
 mul.widths = Counter()  # launches by width class: key b holds widths in [2^(b-1), 2^b)
+mul.widest = 0  # the widest launch's lanes
 
 
 #: most warps (lane groups of 16) per block of fq_rns_pow and fq_rns_chain
@@ -474,6 +476,7 @@ def reset_launches() -> None:
         fn.lanes = 0
         fn.widths.clear()
     mul.broadcast_launches = 0
+    mul.widest = 0
     pow_fixed.widest = 0
 
 

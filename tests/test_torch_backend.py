@@ -128,6 +128,9 @@ def dec_runs(world):
                 "verdicts": verdicts, "rlc": captured, "dispatches": c.device_dispatches,
                 "rlc_groups": c.rlc_groups, "pairing_checks": c.pairing_checks,
                 "ladder_field_muls": c.ladder_field_muls,
+                "stage_cache_hits": c.stage_cache_hits,
+                "stage_cache_misses": c.stage_cache_misses,
+                "glv_decompositions": c.glv_decompositions,
             }
         return out
     finally:
@@ -154,6 +157,62 @@ def test_rlc_group_check_readback(dec_runs):
     got = TT.fq12_to_ints_batch(port_f, 4)
     assert got == JT.fq12_to_ints_batch(ref_f, 4)
     assert got[0] != got[1] and got[1] == got[2] == got[3]
+
+
+def _no_hostpipe_combine_items(world, port: bool):
+    """Four combines over two index sets, the share objects shared between
+    items as the engine shares them: the memo and the identity dedup both
+    have something to save."""
+    sks = world["port_sks"] if port else world["sks"]
+    cts = world["port_cts"] if port else world["cts"]
+    shares = {(c, i): sks.secret_key_share(i).decrypt_share_unchecked(cts[c])
+              for c in (0, 1) for i in range(3)}
+    picks = [(0, (0, 2)), (0, (0, 2)), (1, (0, 2)), (1, (1, 2))]
+    return [({i: shares[c, i] for i in ix}, cts[c]) for c, ix in picks]
+
+
+@pytest.fixture(scope="module")
+def no_hostpipe_combines(world):
+    """combine_dec_shares_batch on both backends under
+    HBBFT_TPU_NO_HOSTPIPE=1, with the device threshold lowered.  The
+    reference's combine dispatch is left out (its values are held by
+    test_combine_dec_shares_batch): every counter read here is billed
+    before the device call."""
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setenv("HBBFT_TPU_NO_HOSTPIPE", "1")
+        ref, port = TpuBackend(), TorchBackend(device="cpu")
+        ref._dispatch_async = lambda *args, **kw: None
+        got = {}
+        for name, backend in (("ref", ref), ("port", port)):
+            backend.device_combine_threshold = 2
+            pks = world["port_pks"] if name == "port" else world["pks"]
+            out = backend.combine_dec_shares_batch(
+                pks, _no_hostpipe_combine_items(world, name == "port"))
+            c = backend.counters
+            got[name] = {"stage_cache_hits": c.stage_cache_hits,
+                         "stage_cache_misses": c.stage_cache_misses,
+                         "glv_decompositions": c.glv_decompositions,
+                         "dispatches": c.device_dispatches, "out": out}
+        return got
+    finally:
+        mp.undo()
+
+
+@pytest.mark.parametrize(
+    "counter", ["stage_cache_hits", "stage_cache_misses", "glv_decompositions", "dispatches"]
+)
+def test_no_hostpipe_stages_like_the_reference(world, dec_runs, no_hostpipe_combines, counter):
+    """HBBFT_TPU_NO_HOSTPIPE=1: the port converts every lane (no identity
+    dedup) and runs each combine's decomposition (no prep memo), as the
+    reference does, so the staging and GLV counters of a grouped
+    verify_dec_shares (``dec_runs`` runs under the switch) and of
+    combine_dec_shares_batch equal the reference's."""
+    assert dec_runs["port"][counter] == dec_runs["ref"][counter]
+    got = no_hostpipe_combines
+    assert got["port"][counter] == got["ref"][counter]
+    assert got["port"]["glv_decompositions"] == 4 * 2 and got["port"]["dispatches"] == 1
+    assert got["port"]["out"] == [world["msgs"][0]] * 2 + [world["msgs"][1]] * 2
 
 
 def test_verify_dec_shares_deferred_twin(world):

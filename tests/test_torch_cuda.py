@@ -2,7 +2,8 @@
 version (the field kernels of csrc/fq_rns.cu and csrc/fq_limb.cu, the
 fused tower kernels of csrc/tower_fused.cu and the FMA probe of
 csrc/probe.cu), the fused chain against the stacked one, and the
-backend on the card against the backend on the CPU.
+backend on the card against the backend on the CPU (the threshold-
+decryption and the signature/coin methods).
 
 They carry the ``cuda`` marker, need an NVIDIA GPU and skip without one
 (the kernels have no CPU mode; their arithmetic is held against the JAX
@@ -142,6 +143,39 @@ def test_backend_on_the_card_matches_the_cpu(dev):
     combs = [({i: shares[3 * c + i] for i in (0, 2)}, cts[c]) for c in range(3)]
     assert card.combine_dec_shares_batch(pks, combs) == [b"card check %d" % i for i in range(3)]
     assert K.mul.launches > 0 and K.pow_fixed.launches > 0
+
+
+def test_sig_side_on_the_card_matches_the_cpu(dev):
+    """verify_sig_shares (an RLC group with a forged share, a passing
+    group, a direct pair), sign_shares_batch and combine_sig_shares_batch
+    (with and without a doc) on the card equal the same calls on the CPU."""
+    rng = random.Random(13)
+    cpu = TorchBackend(device="cpu")
+    card = TorchBackend()
+    sks = cpu.generate_key_set(1, rng)
+    pks = sks.public_keys()
+    docs = [b"coin %d" % i for i in range(3)]
+    for b in (cpu, card):
+        b.device_combine_threshold = 2
+    sign = [(sks.secret_key_share(i), d) for d in docs for i in range(4)]
+    K.reset_launches()
+    shares = card.sign_shares_batch(sign)
+    assert shares == cpu.sign_shares_batch(sign) == [sk.sign_share(d) for sk, d in sign]
+    items = [(pks.public_key_share(i), docs[0], shares[0 if i == 3 else i]) for i in range(4)]
+    items += [(pks.public_key_share(i), docs[1], shares[4 + i]) for i in range(4)]
+    items += [(pks.public_key_share(i), docs[2], shares[8 + i]) for i in (1, 2)]
+    want = [True, True, True, False] + [True] * 6
+    assert card.verify_sig_shares(items) == cpu.verify_sig_shares(items) == want
+    assert card.counters.device_dispatches == cpu.counters.device_dispatches
+    assert card.verify_sig_shares_deferred(items)() == want
+    combs = [({i: shares[4 * c + i] for i in ix}, doc)
+             for c, ix in ((0, (0, 1)), (1, (1, 3)), (2, (0, 2)))
+             for doc in (docs[c], None)]
+    got = card.combine_sig_shares_batch(pks, combs)
+    assert got == cpu.combine_sig_shares_batch(pks, combs)
+    assert got == [pks.combine_signatures(sh) for sh, _ in combs]
+    assert K.mul.launches > 0 and K.pow_fixed.launches > 0
+    assert TK.miller_dbl.launches > 0 and TK.hard_exp.launches > 0
 
 
 def _packed(dev, rng, coeffs, n):

@@ -3,12 +3,14 @@ host kernels against numpy/hashlib.
 
 The port's ``ArrayHoneyBadgerNet`` on ``TorchBackend(device="cpu")`` (the
 fused chain's plain versions, the RLC grouped checks, the ladders) runs
-the same N=4, ``dedup_verifies=True``, 2-epoch schedule as the JAX
-package's engine on its host golden ``CpuBackend`` (as
+the same N=4, ``dedup_verifies=True``, ``coin_rounds=1``, 2-epoch schedule
+as the JAX package's engine on its host golden ``CpuBackend`` (as
 tests/test_array_engine.py runs it): the Batches must be identical and
-every count field of every ``EpochReport`` equal.  A run under
+every count field of every ``EpochReport`` equal, the coin's included.
+The coin round is a superset of the engine's default epoch (its other
+rounds are the same code), so the default rides along.  A run under
 ``HBBFT_TPU_NO_HOSTPIPE=1`` must give the same Batches and dispatches,
-and the options this slice does not carry must raise.
+and the options the port does not carry yet must raise.
 """
 
 import hashlib
@@ -32,7 +34,7 @@ from hbbft_tpu_torch.ops.backend import TorchBackend
 # these small CPU tensors from oversubscribing the cores.
 torch.set_num_threads(1)
 
-N, SEED, EPOCHS = 4, 3, 2
+N, SEED, EPOCHS, COIN_ROUNDS = 4, 3, 2, 1
 _COUNTS = [f.name for f in fields(EpochReport) if f.name != "phase_seconds"]
 
 
@@ -42,7 +44,7 @@ def _port_run(hostpipe: bool):
         os.environ["HBBFT_TPU_NO_HOSTPIPE"] = "1"
     try:
         net = ArrayHoneyBadgerNet(range(N), backend=TorchBackend(device="cpu"), seed=SEED,
-                                  dedup_verifies=True)
+                                  dedup_verifies=True, coin_rounds=COIN_ROUNDS)
         return net, net.run_epochs(EPOCHS)
     finally:
         os.environ.pop("HBBFT_TPU_NO_HOSTPIPE", None)
@@ -52,7 +54,8 @@ def _port_run(hostpipe: bool):
 
 @pytest.fixture(scope="module")
 def runs():
-    ref = RefNet(range(N), backend=CpuBackend(), seed=SEED, dedup_verifies=True)
+    ref = RefNet(range(N), backend=CpuBackend(), seed=SEED, dedup_verifies=True,
+                 coin_rounds=COIN_ROUNDS)
     ref_batches = ref.run_epochs(EPOCHS)
     net, batches = _port_run(hostpipe=True)
     return {"ref": ref, "ref_batches": ref_batches, "net": net, "batches": batches}
@@ -89,7 +92,19 @@ def test_the_epoch_rode_the_fused_chain(runs):
     assert c.fused_tower_calls > 0 and c.stacked_chain_pallas_calls == 0
     assert c.device_seconds_fused_chain > 0 and c.device_seconds_pairing == 0
     assert c.rlc_groups > 0 and c.device_dispatches > 0
-    assert set(runs["net"].reports[-1].phase_seconds) == {"rbc", "ba", "decrypt"}
+    assert set(runs["net"].reports[-1].phase_seconds) == {"rbc", "coin", "ba", "decrypt"}
+
+
+def test_the_coin_rounds_ran_on_the_device_paths(runs):
+    """Each epoch ran one real coin round (N² signs, N² dedup'd share
+    verifies, N combines) through the backend's sig/coin methods: sign
+    ladders, grouped sig-share checks and combines billed to their kinds."""
+    for rep in runs["net"].reports:
+        assert (rep.coin_rounds, rep.coin_signs, rep.sig_shares_verified,
+                rep.sig_combines) == (COIN_ROUNDS, N * N, N * N, N)
+    c = runs["net"].backend.counters
+    assert c.sig_shares_verified == EPOCHS * N * N
+    assert c.device_seconds_sign > 0 and c.device_seconds_rlc_sig > 0
 
 
 def test_no_hostpipe_gives_the_same_batches(runs):
@@ -100,8 +115,6 @@ def test_no_hostpipe_gives_the_same_batches(runs):
 
 def test_unported_options_raise(runs):
     net = runs["net"]
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        ArrayHoneyBadgerNet(range(N), backend=net.backend, coin_rounds=1)
     with pytest.raises(NotImplementedError, match="slice 4"):
         ArrayHoneyBadgerNet(range(N), backend=net.backend, dynamic=True)
     for call in (net.era_change, net.checkpoint, lambda: ArrayHoneyBadgerNet.restore(b"", None)):

@@ -116,6 +116,27 @@ def test_stacked_arm_and_epoch_phases_at_a_tiny_size(smoke, capsys):
     json.dumps(ep)
 
 
+def test_sig_path_at_a_tiny_size(smoke, capsys):
+    """The sig path on phase 3's keys, on the CPU backend at N=4 (the card
+    runs the same code at N=100; the coin epoch's engine path is held at
+    N=4 by tests/test_torch_engine.py)."""
+    backend = TorchBackend(device="cpu")
+    sks = backend.generate_key_set(1, random.Random(2))
+    pks = sks.public_keys()
+    state = {"n": 4, "f": 1, "pks": pks,  # the keys phase_main keeps
+             "sk_shares": [sks.secret_key_share(i) for i in range(4)],
+             "pk_shares": [pks.public_key_share(i) for i in range(4)]}
+    res = smoke.phase_sig(backend, random.Random(3), state, 24, 1, "cpu")
+    out = capsys.readouterr().out
+    assert list(res["seconds"]) == ["sign_shares_batch", "verify_sig_shares",
+                                    "combine_sig_shares_batch", "verify_signatures"]
+    assert (res["signs"], res["verify_items"], res["forged_items"], res["combines"],
+            res["signatures"]) == (16, 24, 3, 16, 5)
+    assert "all rejected" in out and "1 tampered rejected" in out
+    assert backend.counters.device_seconds_sign > 0 and backend.counters.rlc_groups > 0
+    json.dumps(res)
+
+
 def test_limb_arm_payload_roundtrip(smoke):
     """The limb arm's file carries phase 3's objects to the child intact:
     the key set, secret shares, ciphertexts (the tampered one too), the
