@@ -59,15 +59,33 @@ Phases (any failure exits non-zero and prints no result line):
              combines), the native hash-to-G2 built; then ``fq_rns_mul`` and
              ``fq_rns_pow`` against their plain versions at the coin path's
              mean and widest launches.
+   era     — the era machinery at ERA_N=32 (``--era-n``): on its own
+             ``TorchBackend()``, ``ArrayHoneyBadgerNet(range(N), ...,
+             dynamic=True)`` runs the sequence of ``run_epochs(2,
+             churn_at=[1])`` (an epoch, the vote → batched DKG → era
+             turnover, an epoch under the new keys), split at the turnover
+             so the era change is read on its own: the same Batch checks,
+             era 1 with a new master key, the churn report's N², N³, N²+N³
+             and N·(N−1) counts, the DKG's device seconds, all five epoch
+             kernels launched during the era change; then checkpoint →
+             restore onto a fresh backend (byte-equal re-encoding, the same
+             next epoch), ``fq_rns_mul``/``fq_rns_pow`` against their plain
+             versions at the era change's mean and widest launches, and the
+             device MSM ``g1_lincomb`` against a host fold (64 terms) and
+             the seam's default (2·``device_lane_cap``+5 terms: two device
+             chunks and a host tail).  ``--era-only`` builds and runs this
+             phase alone.
    bench   — the port's kernel bench (``hbbft_tpu_torch.tools.kernel_bench``)
              at its default widths: M muls/s of both field arms and the RNS
              chain, TFLOP/s of the FMA probe.
              Kernel launch counts are zeroed just before each of phases 3,
-             limb arm (in the child), sig path, 4, coin epoch and bench, and
-             read just after; every kernel of the path must have launched.
+             limb arm (in the child), sig path, 4, coin epoch, the era
+             change and bench, and read just after; every kernel of the
+             path must have launched.
 5. a ``{"kernels": [...]}`` line, one row per kernel: launches on its own
    path (epoch, limb arm or bench; the epoch kernels also carry their
-   launches on the coin epoch, ``coin_launches``), largest difference from the plain
+   launches on the coin epoch, ``coin_launches``, and during the era
+   change, ``era_launches``), largest difference from the plain
    version (phase 2's widths and the path's), median kernel time at the
    path's mean launch width (``time_ms``: one call between two CUDA
    events; ``fq_rns_pow`` at the epoch's widest launch, no launch having
@@ -93,6 +111,7 @@ import os
 import random
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from contextlib import contextmanager, nullcontext
@@ -170,6 +189,13 @@ COIN_ROUNDS = 1
 #: host golden checks of the sig path: signature shares and instances sampled
 SIGN_SAMPLES = 100
 COMBINE_SAMPLES = 3
+#: the era phase's N: 32 (f=10), the reference's n32_churn window step.
+#: Cut from the repo's N=100, whose era change is ~30x the work: 3,306 s on
+#: an H100 80GB HBM3 at 700 W, 2,636 s of it host hash-to-G2 (PERF.md §5),
+#: far more than the smoke's time limit; ``--era-n`` sets it.
+ERA_N = 32
+#: g1_lincomb's terms held against a pure host fold of g1_mul
+LINCOMB_SAMPLE = 64
 
 #: the kernels, by the path whose launches each row reports
 EPOCH_KERNELS = ("fq_rns_mul", "fq_rns_pow", "tower_op", "miller_dbl", "hard_exp")
@@ -801,6 +827,21 @@ def phase_limb_arm(state, n_items: int, card: str) -> dict:
             "wall_seconds": wall, "items": n_items}
 
 
+def draw_contributions(net) -> dict:
+    """One epoch's contributions from the engine's RNG, as ``run_epochs``
+    draws them."""
+    return {nid: net.rng.getrandbits(8 * PAYLOAD).to_bytes(PAYLOAD, "big") for nid in net.ids}
+
+
+def check_batches(batches: dict, ids, contribs: dict, what: str) -> None:
+    """Every node output the same Batch, holding every contribution."""
+    first = batches[ids[0]]
+    if sorted(batches) != list(ids) or any(b != first for b in batches.values()):
+        raise AssertionError(f"the nodes output different Batches ({what})")
+    if first.contributions != contribs:
+        raise AssertionError(f"the Batch does not hold every contribution ({what})")
+
+
 def phase_epoch(backend, seed: int, n: int, epochs: int, card: str, coin_rounds: int = 0) -> dict:
     """Whole N-node epochs through the port's engine: every node must output
     the same Batch, holding every node's contribution.  With
@@ -817,18 +858,14 @@ def phase_epoch(backend, seed: int, n: int, epochs: int, card: str, coin_rounds:
     log(f"epoch setup (N={n} key generation on the host): {setup:.2f} s")
     out = {"setup_seconds": setup, "epochs": []}
     for _ in range(epochs):
-        contribs = {nid: net.rng.getrandbits(8 * PAYLOAD).to_bytes(PAYLOAD, "big")
-                    for nid in net.ids}
+        contribs = draw_contributions(net)
         t = time.perf_counter()
         batches = net.run_epoch(contribs)
         if backend.device.type == "cuda":
             torch.cuda.synchronize()
         secs = time.perf_counter() - t
+        check_batches(batches, net.ids, contribs, f"epoch {net.epoch - 1}")
         first = batches[net.ids[0]]
-        if sorted(batches) != net.ids or any(b != first for b in batches.values()):
-            raise AssertionError("the nodes output different Batches")
-        if first.contributions != contribs:
-            raise AssertionError("the Batch does not hold every contribution")
         rep = dataclasses.asdict(net.reports[-1])
         out["epochs"].append({"seconds": secs, "report": rep})
         log(f"epoch {first.epoch} N={n} coin_rounds={coin_rounds} [{card}]: {secs:.3f} s, all "
@@ -867,6 +904,228 @@ def phase_epoch(backend, seed: int, n: int, epochs: int, card: str, coin_rounds:
     return out
 
 
+def _counter_delta(before: dict, after: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: after[k] - before[k] for k in after
+            if k.startswith(prefix) and after[k] != before[k]}
+
+
+def _launch_counts(names) -> dict:
+    fns = kernel_fns()
+    return {k: fns[k].launches for k in names}
+
+
+class HostSampler:
+    """Where the host's time goes, by sampling: while active, a thread reads
+    the calling thread's stack every ``interval`` seconds and counts the
+    deepest frame inside the port's package (``file:function``; inside the
+    DKG's own function, ``file:function:line``, which names its pure-Python
+    field loops).  A sample outside the package counts as ``other``.  Its
+    cost is one stack walk per interval."""
+
+    def __init__(self, interval: float = 0.005) -> None:
+        self.interval = interval
+        self.counts: dict = {}
+        self._stop = threading.Event()
+        self._tid = threading.get_ident()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        pkg = f"{os.sep}hbbft_tpu_torch{os.sep}"
+        while not self._stop.wait(self.interval):
+            f = sys._current_frames().get(self._tid)
+            key = "other"
+            while f is not None:
+                code = f.f_code
+                if pkg in code.co_filename:
+                    key = f"{os.path.basename(code.co_filename)}:{code.co_name}"
+                    if code.co_name == "batched_era_dkg":
+                        key += f":{f.f_lineno}"
+                    break
+                f = f.f_back
+            self.counts[key] = self.counts.get(key, 0) + 1
+
+    def __enter__(self) -> "HostSampler":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+    def top(self, k: int = 25) -> list:
+        """The k largest (frame, seconds) pairs, seconds = samples x interval."""
+        items = sorted(self.counts.items(), key=lambda kv: -kv[1])[:k]
+        return [(key, cnt * self.interval) for key, cnt in items]
+
+
+def phase_era(seed: int, n: int, card: str, device=None) -> dict:
+    """The era machinery through the port's engine: ``ArrayHoneyBadgerNet(
+    range(n), TorchBackend(), seed, dynamic=True)`` runs the sequence of
+    ``run_epochs(2, churn_at=[1])`` (one epoch under the dealer's keys, the
+    vote → DKG → era turnover, one epoch under the DKG's keys) as its
+    steps (``run_epoch`` on contributions drawn as ``run_epochs`` draws
+    them, ``era_change``), so that the era change's own seconds, host
+    buckets, device seconds, dispatches, peak memory and kernel launches
+    are read; then ``checkpoint()`` onto a fresh backend and one more
+    epoch on each.
+
+    Raises unless every node outputs the same Batch holding every
+    contribution in each epoch, ``era == 1`` with a new master key, the
+    churn report counts N² parts, N³ acks, N²+N³ ciphertexts and N·(N−1)
+    votes, the DKG's device time is positive, the restored engine
+    re-encodes byte-equal and its next epoch equals the original's, and
+    (on the card) all five epoch kernels launched during the era change."""
+    import torch
+
+    from hbbft_tpu_torch.engine.array_engine import ArrayHoneyBadgerNet
+    from hbbft_tpu_torch.ops.backend import TorchBackend
+    from hbbft_tpu_torch.ops import fq_rns_cuda as K
+
+    backend = TorchBackend(device)
+    on_card = backend.device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    out: dict = {"n": n, "f": (n - 1) // 3}
+    t = time.perf_counter()
+    net = ArrayHoneyBadgerNet(range(n), backend=backend, seed=seed, dynamic=True)
+    out["setup_seconds"] = time.perf_counter() - t
+    master0 = net.pk_master
+    if on_card:
+        reset_launches()
+
+    def epoch(what):
+        contribs = draw_contributions(net)
+        t = time.perf_counter()
+        batches = net.run_epoch(contribs)
+        sync()
+        secs = time.perf_counter() - t
+        check_batches(batches, net.ids, contribs, what)
+        log(f"era phase N={n} {what} [{card}]: {secs:.3f} s, all {n} nodes output the same "
+            f"Batch of {n} contributions")
+        return secs
+
+    out["epoch_seconds"] = [epoch("epoch 0, era 0")]
+    launches = _launch_counts(EPOCH_KERNELS)
+
+    # -- the era change, read on its own --------------------------------
+    c0 = backend.counters.snapshot()
+    if on_card:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(backend.device)
+    t = time.perf_counter()
+    with HostSampler() as sampler:
+        rep = net.era_change()
+        sync()
+    era_s = time.perf_counter() - t
+    c1 = backend.counters.snapshot()
+    era: dict = {"seconds": era_s, "report": dataclasses.asdict(rep)}
+    if on_card:
+        era["launches"], era["lanes"] = read_launches(f"the era change (N={n})", EPOCH_KERNELS)
+        era["widest"] = {"fq_rns_mul": K.mul.widest, "fq_rns_pow": K.pow_fixed.widest}
+        era["peak_memory_bytes"] = torch.cuda.max_memory_allocated(backend.device)
+        launches = {k: launches[k] + era["launches"][k] for k in EPOCH_KERNELS}
+        reset_launches()
+    era["device_seconds"] = _counter_delta(c0, c1, "device_seconds_")
+    era["host_buckets"] = _counter_delta(c0, c1, "host_bucket_")
+    for k in ("device_dispatches", "hash_g2_seconds", "host_seconds", "pairing_checks",
+              "signatures_verified", "ciphertexts_verified"):
+        era[k] = c1[k] - c0[k]
+    era["device_seconds_total"] = c1["device_seconds"] - c0["device_seconds"]
+    era["host_samples"] = sampler.top()
+    want = (n * n, n ** 3, n * n + n ** 3, n * (n - 1))
+    got = (rep.kg_parts_handled, rep.kg_acks_handled, rep.ciphertexts_verified,
+           rep.votes_verified)
+    if got != want:
+        raise AssertionError(f"the churn report counts {got}, not {want}")
+    if net.era != 1 or net.pk_master == master0 or net.churn_reports != [rep]:
+        raise AssertionError("the era did not turn over to a new master key")
+    if not era["device_seconds"].get("dkg", 0) > 0:
+        raise AssertionError("the DKG's ladders and MSMs did not run on the device")
+    out["era_change"] = era
+    log(f"era change N={n}, f={(n - 1) // 3} [{card}]: {era_s:.3f} s; churn report "
+        f"{json.dumps(era['report'])}; host buckets {json.dumps(era['host_buckets'])}; "
+        f"hash_g2_seconds {era['hash_g2_seconds']:.3f}; device seconds by kind "
+        f"{json.dumps(era['device_seconds'])}; device_dispatches {era['device_dispatches']}; "
+        f"peak device memory {era.get('peak_memory_bytes')} bytes; launches "
+        f"{json.dumps(era.get('launches'))}; widest {json.dumps(era.get('widest'))}")
+    log(f"era change N={n}, where the host's time went (sampled, seconds) [{card}]: "
+        f"{json.dumps(era['host_samples'])}")
+
+    out["epoch_seconds"].append(epoch("epoch 1, era 1"))
+    if on_card:
+        launches = {k: launches[k] + v for k, v in _launch_counts(EPOCH_KERNELS).items()}
+    out["launches"] = launches
+
+    # -- checkpoint/restore on the same device --------------------------
+    t = time.perf_counter()
+    blob = net.checkpoint()
+    restored = ArrayHoneyBadgerNet.restore(blob, TorchBackend(device))
+    if restored.checkpoint() != blob:
+        raise AssertionError("the restored engine does not re-encode byte-equal")
+    contribs = draw_contributions(net)
+    if draw_contributions(restored) != contribs:
+        raise AssertionError("the restored engine's RNG differs from the original's")
+    after_restore = restored.run_epoch(contribs)
+    after_original = net.run_epoch(contribs)
+    sync()
+    check_batches(after_restore, net.ids, contribs, "restored engine's next epoch")
+    if after_restore[net.ids[0]] != after_original[net.ids[0]]:
+        raise AssertionError("the restored engine's next epoch differs from the original's")
+    out["checkpoint"] = {"bytes": len(blob), "seconds": time.perf_counter() - t}
+    log(f"era phase checkpoint [{card}]: {len(blob)} bytes; restored on a fresh backend, "
+        f"re-encodes byte-equal; its next epoch equals the original's "
+        f"({out['checkpoint']['seconds']:.3f} s with both epochs)")
+    return out
+
+
+def check_lincomb(seed: int, card: str, device=None, lane_cap=None) -> dict:
+    """``TorchBackend.g1_lincomb`` (the DKG's device MSM) against a pure
+    host fold of ``g1_mul`` on a LINCOMB_SAMPLE-term sample (one device
+    chunk on the card), and against the seam's default ``CryptoBackend.g1_lincomb`` at
+    2·``device_lane_cap``+5 terms (two device chunks and a host tail), with
+    one dispatch per device chunk."""
+    from hbbft_tpu_torch.crypto.backend import CryptoBackend
+    from hbbft_tpu_torch.ops.backend import TorchBackend
+
+    be = TorchBackend(device)
+    if lane_cap is not None:
+        be.device_lane_cap = lane_cap
+    g = be.group
+    rng = random.Random(seed)
+    pts = [g.g1_mul(rng.randrange(1, g.r), g.g1()) for _ in range(LINCOMB_SAMPLE)]
+    scalars = [rng.randrange(g.r) for _ in range(LINCOMB_SAMPLE)]
+    d0 = be.counters.device_dispatches
+    got = be.g1_lincomb(scalars, pts)
+    want = None
+    for s, p in zip(scalars, pts):
+        want = g.g1_add(want, g.g1_mul(s, p))
+    chunks = -(-LINCOMB_SAMPLE // be.device_lane_cap)  # each at least the threshold
+    if got != want or be.counters.device_dispatches - d0 != chunks:
+        raise AssertionError("g1_lincomb differs from the host fold on the sample")
+    terms = 2 * be.device_lane_cap + 5
+    pts = be.g1_mul_batch([rng.randrange(1, g.r) for _ in range(terms)], [g.g1()] * terms)
+    scalars = [rng.randrange(g.r) for _ in range(terms)]
+    t = time.perf_counter()
+    d0 = be.counters.device_dispatches
+    got = be.g1_lincomb(scalars, pts)
+    secs = time.perf_counter() - t
+    dispatches = be.counters.device_dispatches - d0
+    t = time.perf_counter()
+    want = CryptoBackend.g1_lincomb(be, scalars, pts)
+    default_secs = time.perf_counter() - t
+    if got != want or dispatches != 2:
+        raise AssertionError(f"g1_lincomb at {terms} terms differs from the seam's default "
+                             f"(or took {dispatches} dispatches, not 2)")
+    log(f"g1_lincomb [{card}]: equals the host fold at {LINCOMB_SAMPLE} terms and the "
+        f"seam's default at {terms} terms (2 device chunks + a 5-term host tail, "
+        f"{dispatches} dispatches): {secs:.3f} s, the default {default_secs:.3f} s")
+    return {"sample_terms": LINCOMB_SAMPLE, "terms": terms, "seconds": secs,
+            "default_seconds": default_secs, "dispatches": dispatches}
+
+
 def same(name: str, got, want) -> float:
     """max |kernel - plain|; raises unless the two are equal value for value
     (whether every bit agrees too, the signs of zeros included, is logged)."""
@@ -881,10 +1140,12 @@ def same(name: str, got, want) -> float:
     return e
 
 
-def check_coin_widths(dev, rng, errs: dict, launches: dict, lanes: dict, widest: dict) -> dict:
-    """``fq_rns_mul`` and ``fq_rns_pow`` against their plain versions at the
-    coin epoch's mean and widest launch widths (rows beyond 65,536 repeat
-    65,536 distinct lazy rows); returns the widths checked."""
+def check_path_widths(dev, rng, errs: dict, launches: dict, lanes: dict, widest: dict,
+                      what: str) -> dict:
+    """``fq_rns_mul`` and ``fq_rns_pow`` against their plain versions at a
+    path's mean and widest launch widths (the coin epoch's, the era
+    change's; rows beyond 65,536 repeat 65,536 distinct lazy rows);
+    returns the widths checked."""
     import torch
 
     from hbbft_tpu_torch.crypto.field import Q
@@ -905,7 +1166,7 @@ def check_coin_widths(dev, rng, errs: dict, launches: dict, lanes: dict, widest:
                 got, want = K.mul(a, b), K.mul_plain(a, b)
             else:
                 got, want = K.pow_fixed(a, Q - 2), K.pow_plain(a, Q - 2)
-            errs[name] = max(errs[name], same(f"{name} (coin epoch, {n} lanes)", got, want))
+            errs[name] = max(errs[name], same(f"{name} ({what}, {n} lanes)", got, want))
             del a, got, want
             torch.cuda.empty_cache()
     return checked
@@ -1210,11 +1471,44 @@ def profile_main(rng, seed: int, card: str, out_path: str) -> dict:
     return stats
 
 
+def run_era(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
+    """The era phase at ``args.era_n`` on its own backend, then its kernel
+    widths and the device MSM's checks."""
+    import torch
+
+    t = time.perf_counter()
+    era_res = phase_era(args.seed + 3, args.era_n, card)
+    torch.cuda.synchronize()
+    secs["era_phase"] = time.perf_counter() - t
+    era = era_res["era_change"]
+    t = time.perf_counter()
+    era_res["checked_widths"] = check_path_widths(
+        dev, rng, errs, era["launches"], era["lanes"], era["widest"],
+        f"era change, N={args.era_n}")
+    era_res["lincomb"] = check_lincomb(args.seed + 4, card)
+    secs["era_checks"] = time.perf_counter() - t
+    return era_res
+
+
+def log_era(era_res: dict, card: str) -> None:
+    era = era_res["era_change"]
+    log(f"era change N={era_res['n']}, f={era_res['f']} [{card}]: {era['seconds']:.3f} s, "
+        f"host buckets {json.dumps(era['host_buckets'])}, hash_g2_seconds "
+        f"{era['hash_g2_seconds']:.3f}, device seconds {json.dumps(era['device_seconds'])}, "
+        f"device_dispatches {era['device_dispatches']}, peak memory "
+        f"{era['peak_memory_bytes']} bytes, launches {json.dumps(era['launches'])}; epochs "
+        f"{json.dumps(era_res['epoch_seconds'])} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="run phases 3 and 4 again under torch.profiler")
+    ap.add_argument("--era-n", type=int, default=ERA_N,
+                    help=f"N of the era phase (default {ERA_N})")
+    ap.add_argument("--era-only", action="store_true",
+                    help="build the kernels, then run the era phase and its checks alone")
     # the limb arm's child process (phase_limb_arm starts it)
     ap.add_argument("--limb-arm", nargs=2, metavar=("IN", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -1260,6 +1554,19 @@ def main(argv=None) -> int:
         secs["build"] = time.perf_counter() - t
         log(f"build: {built} ({secs['build']:.2f} s)")
         result["build"] = kernel_bench.build_report(dev, log, sources)
+        if args.era_only:
+            era_res = run_era(args, dev, rng, {"fq_rns_mul": 0.0, "fq_rns_pow": 0.0}, card,
+                              secs)
+            result.update(era=era_res, phase_seconds=secs)
+            with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_era.json"), "w") as fh:
+                json.dump(result, fh, indent=1)
+            log_era(era_res, card)
+            log(f"phase seconds [{card}]: {json.dumps(secs)}")
+            log(card)
+            log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                   "kind": torch.cuda.get_device_name(0),
+                                                   "count": torch.cuda.device_count()}}))
+            return 0
 
         t = time.perf_counter()
         errs = phase_kernels(dev, rng, MUL_LANES, POW_LANES)
@@ -1312,7 +1619,7 @@ def main(argv=None) -> int:
             f"widest launch {widest_pow} lanes")
         result["fq_rns_mul_broadcast_launches"] = K.mul.broadcast_launches
 
-        peak_before_coin = torch.cuda.max_memory_allocated(dev)
+        peaks = [torch.cuda.max_memory_allocated(dev)]
         torch.cuda.reset_peak_memory_stats(dev)
         coin_backend = TorchBackend()
         reset_launches()
@@ -1334,9 +1641,12 @@ def main(argv=None) -> int:
             f"{json.dumps(coin_widest)}; launch widths (key b: [2^(b-1), 2^b) lanes -> "
             f"launches) {json.dumps(coin_res['launch_widths_log2'])}")
         t = time.perf_counter()
-        coin_res["checked_widths"] = check_coin_widths(dev, rng, errs, coin_launches,
-                                                       coin_lanes, coin_widest)
+        coin_res["checked_widths"] = check_path_widths(dev, rng, errs, coin_launches,
+                                                       coin_lanes, coin_widest, "coin epoch")
         secs["coin_widths"] = time.perf_counter() - t
+
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        era_res = run_era(args, dev, rng, errs, card, secs)
 
         reset_launches()
         t = time.perf_counter()
@@ -1348,8 +1658,9 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         rows = kernel_rows(dev, rng, errs, launches, lanes, widest_pow)
         rows += tower_kernel_rows(dev, rng, errs, launches, lanes)
-        for r in rows:  # the coin epoch's launches beside the two epochs'
+        for r in rows:  # the coin epoch's and the era change's beside the two epochs'
             r["coin_launches"] = coin_launches[r["name"]]
+            r["era_launches"] = era_res["era_change"]["launches"][r["name"]]
         rows += limb_kernel_rows(dev, rng, errs, limb_res["launches"], limb_res["lanes"])
         rows += bench_kernel_rows(dev, rng, args.seed, errs, bench_launches, bench_lanes,
                                   bench_res)
@@ -1369,11 +1680,11 @@ def main(argv=None) -> int:
     result.update({
         "n": N, "f": (N - 1) // 3, "path": path_res, "path_launches": path_launches,
         "stacked_arm": stacked_res, "limb_arm": limb_res, "sig_path": sig_res,
-        "epoch": epoch_res, "coin_epoch": coin_res,
+        "epoch": epoch_res, "coin_epoch": coin_res, "era": era_res,
         "bench": bench_res, "phase_seconds": secs,
         "path_device_dispatches": c.device_dispatches, "path_pairing_checks": c.pairing_checks,
         "path_rlc_groups": c.rlc_groups, "kernels": rows, "launch_widths_log2": widths,
-        "peak_memory_bytes": max(peak_before_coin, torch.cuda.max_memory_allocated(dev)),
+        "peak_memory_bytes": max(*peaks, torch.cuda.max_memory_allocated(dev)),
         "profile": prof,
     })
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
@@ -1391,6 +1702,7 @@ def main(argv=None) -> int:
         f"{json.dumps(coin_res['epochs'][0]['report']['phase_seconds'])}, device seconds "
         f"{json.dumps(coin_res['device_seconds'])}, launches {json.dumps(coin_launches)}, "
         f"lanes {json.dumps(coin_lanes)}, peak memory {coin_res['peak_memory_bytes']} bytes")
+    log_era(era_res, card)
     log(f"phase seconds [{card}]: {json.dumps(secs)}")
     log(f"path device_dispatches={c.device_dispatches} pairing_checks={c.pairing_checks} "
         f"rlc_groups={c.rlc_groups} peak_memory_bytes={result['peak_memory_bytes']} [{card}]")

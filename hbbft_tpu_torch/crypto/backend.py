@@ -282,7 +282,7 @@ class CryptoBackend(abc.ABC):
         """One multi-scalar combination Σ s_i·P_i — the aggregated side of
         the DKG's RLC commitment checks and era-change cross-checks (one
         MSM replaces N³ per-item Horner evaluations).  Default: batched
-        muls + host fold; TpuBackend overrides with a single
+        muls + host fold; TorchBackend overrides with one
         linear_combine_g1 dispatch per lane-capped chunk, riding the
         GLV joint-table ladder (ops/backend.py)."""
         g = self.group

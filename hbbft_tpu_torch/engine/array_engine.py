@@ -38,15 +38,20 @@ emitted.  ``HBBFT_TPU_NO_HOSTPIPE=1`` restores the per-item loops and
 strictly ordered verification — Batches are bit-identical and
 ``device_dispatches`` unchanged either way.
 
-Carried by the port: ``run_epoch``/``run_epochs`` with ``dynamic=False``,
-with or without real coin rounds (``coin_rounds=R``: R threshold-sign
-rounds per epoch through the backend's signature/coin side).  The
-DynamicHoneyBadger envelope, era change and checkpoint/restore (the DKG
-slice) raise ``NotImplementedError``.
+**Era machinery.** ``dynamic=True`` wraps each contribution in
+DynamicHoneyBadger's internal envelope; ``era_change()`` runs validator
+turnover (signed votes → the batched DKG of engine/dkg_batch.py → new
+keys, ``era += 1``), and ``run_epochs(k, churn_at=[...])`` fires one
+before each listed epoch.  ``checkpoint()``/``restore()`` snapshot the
+whole engine through utils/snapshot.py (the backend is re-attached).
+The reference's per-node SyncKeyGen arm (``HBBFT_TPU_DKG`` other than
+``batched``) raises ``NotImplementedError``: protocols/sync_key_gen.py
+is not ported.
 """
 
 from __future__ import annotations
 
+import os
 import random
 import time
 from dataclasses import dataclass
@@ -56,7 +61,7 @@ from hbbft_tpu_torch.core.network_info import NetworkInfo
 from hbbft_tpu_torch.crypto.backend import CryptoBackend
 from hbbft_tpu_torch.crypto.erasure import rs_codec
 from hbbft_tpu_torch.crypto.merkle import MerkleTree, PackedProofs, _depth, validate_proofs
-from hbbft_tpu_torch.engine.dkg_batch import batched_encrypt
+from hbbft_tpu_torch.engine.dkg_batch import batched_encrypt, batched_era_dkg
 from hbbft_tpu_torch.ops.pipeline import hostpipe_enabled
 from hbbft_tpu_torch.protocols.honey_badger import Batch
 from hbbft_tpu_torch.utils import canonical
@@ -129,11 +134,6 @@ class ArrayHoneyBadgerNet:
         dynamic: bool = False,
         coin_rounds: int = 0,
     ) -> None:
-        if dynamic:
-            raise NotImplementedError(
-                "dynamic=True (the DynamicHoneyBadger envelope and its era "
-                "machinery) comes with the DKG (port slice 4)"
-            )
         if backend is None:
             from hbbft_tpu_torch.ops.backend import TorchBackend
 
@@ -148,6 +148,12 @@ class ArrayHoneyBadgerNet:
         )
         self.dedup_verifies = dedup_verifies
         self.verify_chunk = verify_chunk
+        #: DynamicHoneyBadger flavor: contributions are wrapped in DHB's
+        #: internal ("icontrib", user, votes, keygen) envelope.  With no
+        #: membership churn inside the epoch the vote/key-gen lists are
+        #: empty, so the per-batch signature verification of the DHB layer
+        #: has zero items (era changes run between epochs: era_change)
+        self.dynamic = dynamic
         #: real coin rounds per epoch: with coin_rounds=R every BA
         #: instance runs R rounds whose conf_values stay {true, false}
         #: (split inputs) and each invokes the threshold-sign coin: every
@@ -156,8 +162,10 @@ class ArrayHoneyBadgerNet:
         #: round decides
         self.coin_rounds = coin_rounds
         self.epoch = 0
+        self.era = 0
         self.counters = Counters()
         self.reports: List[EpochReport] = []
+        self.churn_reports: List[EpochReport] = []
         any_info = self.netinfos[self.ids[0]]
         self.pk_set = any_info.public_key_set
         self.pk_master = self.pk_set.public_key()
@@ -238,10 +246,16 @@ class ArrayHoneyBadgerNet:
         t_phase = clock()
 
         # ------ round 0: encrypt + RS-encode + Merkle-commit + Value -------
-        # honey_badger.py propose(): canonical-encode the contribution,
-        # then threshold-encrypt.
+        # honey_badger.py propose(): canonical-encode the contribution
+        # (wrapped in DHB's internal envelope in dynamic mode), then
+        # threshold-encrypt.
         with bk.region("encode"):
-            inners: List[Any] = [bytes(contributions[nid]) for nid in self.ids]
+            inners: List[Any] = [
+                ("icontrib", bytes(contributions[nid]), [], [])  # match DHB propose()
+                if self.dynamic
+                else bytes(contributions[nid])
+                for nid in self.ids
+            ]
             msgs = (
                 canonical.encode_batch(inners)
                 if fast
@@ -537,7 +551,10 @@ class ArrayHoneyBadgerNet:
                 pt = plains[j * reps]
                 _require(pt is not None, "array engine: combine failed")
                 plain[p] = pt
-        # honey_badger.py batch emission: canonical-decode each plaintext.
+        # honey_badger.py batch emission: canonical-decode each plaintext;
+        # in dynamic mode also unwrap DHB's internal envelope (its per-batch
+        # signature verification runs over the votes/key-gen lists, which
+        # are empty within an epoch).
         decoded: Dict[Any, bytes] = {}
         with bk.region("encode"):
             plain_list = [plain[p] for p in self.ids]
@@ -547,6 +564,13 @@ class ArrayHoneyBadgerNet:
                 else [canonical.decode(b) for b in plain_list]
             )
             for p, tree in zip(self.ids, trees_out):
+                if self.dynamic:
+                    tag, user, votes, kg = tree
+                    _require(
+                        tag == "icontrib" and votes == [] and kg == [],
+                        "array engine: DHB envelope mismatch",
+                    )
+                    tree = user
                 _require(tree == bytes(contributions[p]), "decrypt mismatch")
                 decoded[p] = tree
         rep.rounds += 1
@@ -669,26 +693,142 @@ class ArrayHoneyBadgerNet:
         rep.rounds += 1
 
     def era_change(self) -> EpochReport:
-        """Validator turnover (vote → DKG → new era): not in this slice."""
-        raise NotImplementedError("era_change needs the batched DKG (port slice 4)")
+        """Mid-run validator turnover: vote → DKG → new era, executed
+        lockstep between epochs.
+
+        1. **Vote**: every node signs a Change vote with its per-node key;
+           every receiver verifies every vote: one batched
+           ``verify_signatures`` call (N·(N−1) checks; dedup: N).
+        2. **DKG**: all N nodes run the key generation through
+           engine/dkg_batch.py: every Part handled by every node (N² row
+           decryptions and checks), every Ack by every node (N³ value
+           checks).
+        3. **Era turnover**: NetworkInfo is rebuilt with the new key
+           shares, era += 1.  The NEXT run_epoch's decrypt-equality checks
+           prove consensus still holds under the new keys.
+
+        ``HBBFT_TPU_DKG`` (read per call) other than ``batched`` selects
+        the reference's per-node SyncKeyGen arm, which raises here:
+        protocols/sync_key_gen.py waits for a later port slice.
+
+        Returns the work report (also appended to ``churn_reports``).
+        """
+        with self.backend.buckets.epoch():
+            return self._era_change()
+
+    def _era_change(self) -> EpochReport:
+        dkg_mode = os.environ.get("HBBFT_TPU_DKG", "batched")
+        if dkg_mode != "batched":
+            raise NotImplementedError(
+                f"HBBFT_TPU_DKG={dkg_mode} selects the per-node SyncKeyGen arm, "
+                "which needs protocols/sync_key_gen.py: not ported yet (a later "
+                "port slice; ROADMAP queue 1)"
+            )
+        n, f = self.n, self.f
+        rep = EpochReport(epoch=self.epoch)
+        bk = self.backend.buckets
+
+        # 1) signed votes, batch-verified per receiver (ride inside one
+        # epoch's contributions, so no extra message rounds).
+        with bk.region("encode"):
+            vote_doc = canonical.encode(("vote", self.era, "rotate-keys"))
+        vote_sigs = {
+            nid: self.netinfos[nid].secret_key.sign(vote_doc)
+            for nid in self.ids
+        }
+        reps = 1 if self.dedup_verifies else n - 1
+        pub_keys = self.netinfos[self.ids[0]].public_key_map()
+        with bk.region("assemble"):
+            vote_items = [
+                (pub_keys[nid], vote_doc, vote_sigs[nid])
+                for nid in self.ids
+                for _ in range(reps)
+            ]
+        with bk.region("dispatch"):
+            ok = self.backend.verify_signatures(vote_items)
+        _require(all(ok), "array engine: honest vote rejected")
+        rep.votes_verified += len(vote_items)
+
+        # 2) the key generation among all N (lockstep Part then Ack
+        # phases), device-batched ladders, batched pairing checks and
+        # RLC-aggregated commitment checks.
+        self._count_msgs(rep, n * (n - 1))  # Part: Target.All
+        self._count_msgs(rep, n * n * (n - 1))  # Ack: Target.All
+        with bk.region("dispatch"):
+            first, shares, kstats = batched_era_dkg(
+                self.backend,
+                self.ids,
+                {nid: self.netinfos[nid].secret_key.x for nid in self.ids},
+                {nid: pub_keys[nid].el for nid in self.ids},
+                f,
+                self.rng,
+            )
+        rep.kg_parts_handled += kstats.parts_handled
+        rep.kg_acks_handled += kstats.acks_handled
+        rep.ciphertexts_verified += kstats.ciphertexts_verified
+        rep.hashes += kstats.hashes_g2
+        rep.rounds += 2
+
+        # 3) era turnover: every node takes the one derived key set.
+        secret_keys = {nid: self.netinfos[nid].secret_key for nid in self.ids}
+        self.netinfos = {
+            nid: NetworkInfo(
+                our_id=nid,
+                secret_key_share=shares[nid],
+                public_key_set=first,
+                secret_key=secret_keys[nid],
+                public_keys=pub_keys,
+            )
+            for nid in self.ids
+        }
+        self.pk_set = first
+        self.pk_master = first.public_key()
+        self.threshold = first.threshold()
+        self.pk_shares = [first.public_key_share(i) for i in range(n)]
+        self.era += 1
+        # era-keyed staging invalidation: the backend drops the residue
+        # rows staged for the dead era's key material (ops/staging.py)
+        self.backend.new_era(self.era)
+        self.churn_reports.append(rep)
+        return rep
 
     def checkpoint(self) -> bytes:
-        """Whole-engine snapshot: not in this slice."""
-        raise NotImplementedError(
-            "checkpoint/restore come with the era machinery (port slice 4)"
-        )
+        """Whole-engine state (keys, era, epoch, RNG, reports) to canonical
+        snapshot bytes, taken at a quiescent point: the backend's pipeline
+        is flushed first.  The crypto backend is environment, not state
+        (utils/snapshot.py): ``restore`` re-attaches one."""
+        from hbbft_tpu_torch.utils.snapshot import save_node
+
+        self.backend.flush()
+        return save_node(self)
 
     @classmethod
     def restore(cls, data: bytes, backend: CryptoBackend) -> "ArrayHoneyBadgerNet":
-        """Rebuild from :meth:`checkpoint` bytes: not in this slice."""
-        raise NotImplementedError(
-            "checkpoint/restore come with the era machinery (port slice 4)"
-        )
+        """Rebuild from :meth:`checkpoint` bytes on ``backend``; resumes
+        byte-identically (the RNG state round-trips, so epoch E+1 after
+        restore equals epoch E+1 of the uninterrupted run)."""
+        from hbbft_tpu_torch.utils.snapshot import SnapshotError, load_node
 
-    def run_epochs(self, k: int, payload_size: int = 128) -> List[Dict[Any, Batch]]:
-        """Run k epochs with synthetic per-node contributions."""
+        net = load_node(data, backend)
+        if not isinstance(net, cls):
+            raise SnapshotError(
+                f"snapshot holds {type(net).__name__}, not {cls.__name__}"
+            )
+        return net
+
+    def run_epochs(
+        self,
+        k: int,
+        payload_size: int = 128,
+        churn_at: Optional[Sequence[int]] = None,
+    ) -> List[Dict[Any, Batch]]:
+        """Run k epochs with synthetic per-node contributions; an
+        ``era_change()`` fires before each epoch index in ``churn_at``."""
+        churn = set(churn_at or ())
         out = []
-        for _ in range(k):
+        for i in range(k):
+            if i in churn:
+                self.era_change()
             contribs = {
                 nid: self.rng.getrandbits(8 * payload_size).to_bytes(payload_size, "big")
                 for nid in self.ids

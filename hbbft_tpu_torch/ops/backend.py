@@ -30,9 +30,9 @@ tower kernels (``ops/pairing_chain.py``) unless
 ``_bill_chain``.  ``g1_mul_batch``/``g2_mul_batch`` (the batched
 threshold encryption of the array engine) and ``sign_shares_batch`` (the
 coin's shares) ride the same ladders as decryption-share generation; the
-signature and decryption combines share one Lagrange chunk body.  The
-DKG's ``g1_lincomb`` is not ported yet: it runs the seam's host default
-(crypto/backend.py).
+signature and decryption combines share one Lagrange chunk body, and the
+era-change DKG's ``g1_lincomb`` (its device MSM) stages each lane-capped
+chunk through the single combines' ``_stage_combine``.
 
 The RLC coefficients are drawn from the OS CSPRNG (``os.urandom``): a
 seeded generator would make them predictable and void the batch check.
@@ -917,6 +917,47 @@ class TorchBackend(CryptoBackend):
             lambda i: self.group.g1_mul(scalars[i], points[i]),
             _G1_LADDER, kind=kind,
         )
+
+    def g1_lincomb(self, scalars: Sequence[int], points: Sequence[Any]) -> Any:
+        """One device MSM Σ s_i·P_i: the aggregated side of the batched
+        DKG's RLC commitment cross-checks (engine/dkg_batch.py feeds it
+        N²-sized point sets).
+
+        Below ``device_combine_threshold`` terms it is the seam's default.
+        Above, each lane-capped chunk is one deferred dispatch of the G1
+        joint-table linear combine (the Lagrange combines' ladder), staged
+        by ``_stage_combine``; a sub-threshold tail chunk folds on the
+        host, and the partial sums fold on the host after the flush.
+
+        Precondition (as for g1_mul_batch): points have order r."""
+        n = len(scalars)
+        if n < self.device_combine_threshold:
+            return super().g1_lincomb(scalars, points)
+        cap = self.device_lane_cap
+        partials: List[Any] = [None] * ((n + cap - 1) // cap)
+        for ci, lo in enumerate(range(0, n, cap)):
+            chunk_s = list(scalars[lo : lo + cap])
+            chunk_p = list(points[lo : lo + cap])
+            if len(chunk_s) < self.device_combine_threshold:
+                acc_h = None
+                for s, p in zip(chunk_s, chunk_p):
+                    acc_h = self.group.g1_add(acc_h, self.group.g1_mul(s, p))
+                partials[ci] = acc_h
+                continue
+            with self._host_assembly():
+                args = self._stage_combine(chunk_s, chunk_p, _G1_LADDER)
+            self.counters.device_dispatches += 1
+
+            def deliver(fetched, ci=ci):
+                partials[ci] = _G1_LADDER.from_device(fetched)[0]
+
+            self._dispatch_async(_G1_LADDER.combine, args, kind="dkg", items=len(chunk_s),
+                                 on_result=deliver)
+        self._pipe.flush()
+        acc = partials[0]
+        for el in partials[1:]:
+            acc = self.group.g1_add(acc, el)
+        return acc
 
     def g2_mul_batch(self, scalars: Sequence[int], points: Sequence[Any],
                      kind: str = "dkg") -> List[Any]:

@@ -10,7 +10,7 @@ every count field of every ``EpochReport`` equal, the coin's included.
 The coin round is a superset of the engine's default epoch (its other
 rounds are the same code), so the default rides along.  A run under
 ``HBBFT_TPU_NO_HOSTPIPE=1`` must give the same Batches and dispatches,
-and the options the port does not carry yet must raise.
+and the per-node DKG arm the port does not carry yet must raise.
 """
 
 import hashlib
@@ -113,13 +113,17 @@ def test_no_hostpipe_gives_the_same_batches(runs):
     assert net.backend.counters.device_dispatches == runs["net"].backend.counters.device_dispatches
 
 
-def test_unported_options_raise(runs):
+def test_unported_options_raise(runs, monkeypatch):
+    """The era machinery is ported (tests/test_torch_era.py); the
+    reference's per-node SyncKeyGen arm is not, and its switch raises
+    before any work instead of being ignored."""
     net = runs["net"]
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ArrayHoneyBadgerNet(range(N), backend=net.backend, dynamic=True)
-    for call in (net.era_change, net.checkpoint, lambda: ArrayHoneyBadgerNet.restore(b"", None)):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            call()
+    epoch, era = net.epoch, net.era
+    for mode in ("pernode", "anything-but-batched"):
+        monkeypatch.setenv("HBBFT_TPU_DKG", mode)
+        with pytest.raises(NotImplementedError, match="sync_key_gen"):
+            net.era_change()
+    assert (net.epoch, net.era, net.churn_reports) == (epoch, era, [])
 
 
 def test_batched_encryption_ladders_equal_the_host(runs):

@@ -168,3 +168,24 @@ def test_limb_arm_payload_roundtrip(smoke):
     assert len({id(it) for it in got["items"]}) == 5  # each distinct item once
     assert [({i: s.to_bytes() for i, s in ch.items()}, ct) for ch, ct in got["combine_items"]] == [
         ({i: gen[p * n + i].to_bytes() for i in range(f + 1)}, cts[p]) for p in range(n)]
+
+
+def test_era_phase_at_a_tiny_size(smoke, capsys):
+    """The era phase and the device MSM's checks on the CPU backend at N=4
+    (the card runs the same code at N=32, and at N=100 with ``--era-n``):
+    the churn counts, the new era, the restored engine, the sampled host
+    split; ``g1_lincomb`` with the lane cap at 16 (37 terms: two device
+    chunks and a host tail)."""
+    res = smoke.phase_era(3, 4, "cpu", device="cpu")
+    era = res["era_change"]
+    rep = era["report"]
+    assert (rep["kg_parts_handled"], rep["kg_acks_handled"], rep["ciphertexts_verified"],
+            rep["votes_verified"]) == (16, 64, 80, 12)
+    assert era["device_seconds"]["dkg"] > 0 and era["device_dispatches"] == 14
+    assert era["host_samples"] and len(res["epoch_seconds"]) == 2
+    assert res["checkpoint"]["bytes"] > 0
+    lin = smoke.check_lincomb(4, "cpu", device="cpu", lane_cap=16)
+    assert (lin["terms"], lin["dispatches"]) == (37, 2)
+    out = capsys.readouterr().out
+    assert "re-encodes byte-equal" in out and "equals the host fold at 64 terms" in out
+    json.dumps(res)
