@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
              parallel, one process each (fq_rns.cu: the RNS field multiply,
              power and chain; tower_fused.cu: the fused tower op, Miller
              doubling and final-exponentiation hard part; fq_limb.cu: the
-             limb field multiply and power; probe.cu: the FMA probe).
+             limb field multiply and power; probe.cu: the FMA probe;
+             sha256.cu: the tagged SHA-256 and the Merkle proof walk;
+             gf256.cu: the GF(2^8) bit product).
 2. kernels — each kernel against its plain PyTorch version on the card,
              bit for bit (tolerance 0: the arithmetic is exact integer
              float32) at one lane, partial blocks and full widths, plus
@@ -23,6 +25,12 @@ Phases (any failure exits non-zero and prints no result line):
              width per lanes-per-block class of this card; ``hard_exp`` at
              HARD_WIDTHS, the mean and where its lanes per block step up;
              ``fq_rns_pow`` at POW_WIDTHS and the epoch's widest launch.
+             The erasure/hash plane's kernels bit for bit against their
+             plain versions, with samples against hashlib and the host
+             GF(2^8) product: ``sha256_tagged`` at one message, 1,001 node
+             pairs and the leaf lengths SHA_LENGTHS; ``gf256_matmul`` at one
+             column, ragged blocks and the epoch's codec (its encode matrix
+             and the decode matrix of a random erasure pattern).
 3. path    — the threshold-decryption crypto path of one N=100, f=33
              HoneyBadger epoch through ``TorchBackend()`` (the first slice's
              path, now on the fused chain): ciphertext checks (one
@@ -50,8 +58,16 @@ Phases (any failure exits non-zero and prints no result line):
              (plus one tampered); verdicts exact.
 4. epoch   — the main path: whole N=100 HoneyBadger epochs through the
              port's ``ArrayHoneyBadgerNet`` on ``TorchBackend()``; every node
-             must output the same Batch holding every contribution, and the
-             native host kernels of the RS/Merkle plane must have been built.
+             must output the same Batch holding every contribution, the
+             RS/Merkle plane must have run on the device (``sha256_tagged``,
+             ``sha256_proofs`` and ``gf256_matmul`` launched, device seconds
+             of kinds ``rs_enc`` and ``merkle``), and the native host kernels
+             (round 3's re-commit) must have been built.
+   kill switch — one N=100 epoch on a fresh net with the same seed under
+             HBBFT_TPU_NO_DEVICE_RS=1: the plane arm's first Batch and
+             EpochReport counts, no plane kernel launched, 3 + N dispatches
+             fewer; both arms' ``host_bucket_rs_merkle`` and
+             ``device_dispatches`` per epoch are logged.
    coin epoch — one N=100 epoch with ``coin_rounds=1`` (binary agreement
              on split inputs: one real threshold-sign coin round per
              instance): the same Batch checks, the coin's counts in the
@@ -85,7 +101,9 @@ Phases (any failure exits non-zero and prints no result line):
 5. a ``{"kernels": [...]}`` line, one row per kernel: launches on its own
    path (epoch, limb arm or bench; the epoch kernels also carry their
    launches on the coin epoch, ``coin_launches``, and during the era
-   change, ``era_launches``), largest difference from the plain
+   change, ``era_launches``; the plane's kernels are held at the epoch's
+   own shapes first: a whole tree build, the N² proof walk with corrupted
+   roots and leaf), largest difference from the plain
    version (phase 2's widths and the path's), median kernel time at the
    path's mean launch width (``time_ms``: one call between two CUDA
    events; ``fq_rns_pow`` at the epoch's widest launch, no launch having
@@ -106,6 +124,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import random
@@ -124,6 +143,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 INT8_TC_OPS = 1979e12
 FP32_FLOPS = 67e12
+#: 32-bit integer operations outside the tensor cores: an SM issues 64 a
+#: clock, half its 128 float32 lanes, so a quarter of the float32 rate
+#: (which counts an FMA as two): ~16.7 T ops/s at the same clock
+INT32_OPS = FP32_FLOPS / 4
 
 # The least work one Montgomery product needs per lane (the bound below):
 # * the two base extensions as int8 tensor-core products, as mul_warp
@@ -197,8 +220,36 @@ ERA_N = 32
 #: g1_lincomb's terms held against a pure host fold of g1_mul
 LINCOMB_SAMPLE = 64
 
+#: the erasure/hash plane at the epoch's N: k = N - 2f data and m = 2f
+#: parity shards; 128-byte contributions frame to ~283 bytes, shards of 9
+#: bytes (the checks before the epoch; after it the widths are read from
+#: its launches)
+RS_K, RS_M = N - 2 * ((N - 1) // 3), 2 * ((N - 1) // 3)
+SHARD_LEN = 9
+#: leaf lengths the tagged hash is checked at: tag + 54 data bytes + 9 pad
+#: bytes fill one block, 55 need two; 118 two, 119 three
+SHA_LENGTHS = (0, 9, 54, 55, 118, 119, 200)
+#: 32-bit integer instructions of one SHA-256 compression on sm_90a, the
+#: least csrc/sha256.cu's arithmetic needs: a rotate or shift is one SHF,
+#: any boolean function of three words one LOP3, a sum of three words one
+#: IADD3.  48 schedule words x 10 (each sigma 2 SHF + SHR + LOP3; w + s0 +
+#: w7 + s1 two adds), 64 rounds x 14 (each Sigma 3 SHF + LOP3; ch and maj
+#: one LOP3 each; t1 = h + S1 + ch + K + w two IADD3, e = d + t1 one, a =
+#: t1 + S0 + maj one), 8 final adds
+SHA_OPS = 48 * 10 + 64 * 14 + 8
+
+
+def gf_ops(k: int) -> int:
+    """32-bit integer instructions of one output bit of ``gf256_matmul``
+    with k input bytes (csrc/gf256.cu): one LOP3 (acc ^ (row & col)) per
+    packed word, then the popcount, the & 1 and the OR into the output
+    byte."""
+    return -(-k // 4) + 3
+
+
 #: the kernels, by the path whose launches each row reports
 EPOCH_KERNELS = ("fq_rns_mul", "fq_rns_pow", "tower_op", "miller_dbl", "hard_exp")
+RS_KERNELS = ("sha256_tagged", "sha256_proofs", "gf256_matmul")
 LIMB_KERNELS = ("fq_limb_mul", "fq_limb_pow")
 BENCH_KERNELS = ("fq_rns_chain", "fma_probe")
 
@@ -218,13 +269,15 @@ LIMB_MUL_OPS = LIMB_CORE_OPS + 2 * LIMB_CARRY3_50
 LIMB_ROW_BYTES = 50 * 4
 
 
-def roofline(nbytes: float, fp32_ops: float, tc_ops: float = 0.0) -> tuple:
+def roofline(nbytes: float, fp32_ops: float, tc_ops: float = 0.0,
+             int_ops: float = 0.0) -> tuple:
     """(bound_ms, bound_by): the largest of the time to move ``nbytes``,
-    the time of the int8 tensor-core operations and the time of the
-    float32 operations, each at its peak (the tensor cores and the float32
-    pipe run at once, so the operations take the longer of the two)."""
+    the time of the int8 tensor-core operations, the time of the float32
+    operations and the time of the 32-bit integer operations, each at its
+    peak (the tensor cores and the two pipes run at once, so the operations
+    take the longest of the three)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(tc_ops / INT8_TC_OPS, fp32_ops / FP32_FLOPS)
+    t_ops = max(tc_ops / INT8_TC_OPS, fp32_ops / FP32_FLOPS, int_ops / INT32_OPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -427,6 +480,181 @@ def check_probe(dev, seed: int, shape, iters: int, errs: dict) -> None:
     if not bool((diff <= tol * want.abs()).all()):
         raise AssertionError("fma_probe is outside its tolerance of the plain version")
     errs["fma_probe"] = max(errs.get("fma_probe", 0.0), err)
+
+
+def same_bytes(name: str, got, want) -> float:
+    """max |kernel - plain| over byte or boolean results; raises unless the
+    two are equal element for element."""
+    import torch
+
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    eq = torch.equal(got, want)
+    e = float((got.to(torch.int16) - want.to(torch.int16)).abs().max()) if got.numel() else 0.0
+    log(f"{name}: {tuple(got.shape)}, max |kernel - plain| = {e}, same bits: {eq}")
+    if not eq:
+        raise AssertionError(f"{name} differs from its plain version")
+    return e
+
+
+def _hashlib_rows(name: str, msgs, tag: int, got) -> None:
+    """The first, middle and last rows of a tagged hash against hashlib."""
+    m, g = msgs.cpu().numpy(), got.cpu().numpy()
+    for i in {0, len(m) // 2, len(m) - 1}:
+        if g[i].tobytes() != hashlib.sha256(bytes([tag]) + m[i].tobytes()).digest():
+            raise AssertionError(f"{name}: row {i} differs from hashlib")
+
+
+def check_tagged(dev, rng, errs: dict, n: int, length: int, tag: int, what: str) -> None:
+    """``sha256_tagged`` against its plain version and hashlib on n random
+    messages of ``length`` bytes."""
+    import numpy as np
+    import torch
+
+    from hbbft_tpu_torch.ops import sha256 as S
+
+    msgs = torch.as_tensor(np.random.default_rng(rng.getrandbits(32)).integers(
+        0, 256, size=(n, length), dtype=np.uint8), device=dev)
+    got = S.sha256_tagged(msgs, tag)
+    errs["sha256_tagged"] = max(errs.get("sha256_tagged", 0.0), same_bytes(
+        f"sha256_tagged tag={tag} {what}", got, S.sha256_tagged_plain(msgs, tag)))
+    _hashlib_rows(f"sha256_tagged {what}", msgs, tag, got)
+
+
+def check_gf(dev, errs: dict, m, x_np, what: str) -> None:
+    """``gf256_matmul`` of the GF matrix ``m`` on the bytes ``x_np`` against
+    its plain version and the host codec's product."""
+    import numpy as np
+    import torch
+
+    from hbbft_tpu_torch.crypto.erasure import gf256
+    from hbbft_tpu_torch.ops import gf256 as G
+
+    words = torch.as_tensor(G.pack_gf_matrix(m), device=dev)
+    x = torch.as_tensor(x_np, device=dev)
+    got = G.gf256_matmul(words, x)
+    errs["gf256_matmul"] = max(errs.get("gf256_matmul", 0.0), same_bytes(
+        f"gf256_matmul {what}", got, G.gf256_matmul_plain(words, x)))
+    if not np.array_equal(got.cpu().numpy(), gf256().matmul(m, x_np)):
+        raise AssertionError(f"gf256_matmul {what} differs from the host GF(2^8) product")
+
+
+def check_rs_plane_kernels(dev, rng, errs: dict) -> None:
+    """The erasure/hash plane's kernels at their edges: the tagged hash at
+    one message, a batch that is not a multiple of its 64-thread blocks and
+    the leaf lengths around the block-count steps; the GF product at one
+    column, a ragged column block, few rows, and the epoch's codec (encode
+    matrix and the decode matrix of a random erasure pattern).  The epoch's
+    own shapes are checked after the epoch (``rs_plane_rows``)."""
+    import numpy as np
+
+    from hbbft_tpu_torch.crypto.erasure import RSCodec, gf256
+
+    check_tagged(dev, rng, errs, 1, 9, 0, "(1 message)")
+    check_tagged(dev, rng, errs, 1001, 64, 1, "(1,001 node pairs)")
+    for length in SHA_LENGTHS:
+        check_tagged(dev, rng, errs, 67, length, 0, f"({length}-byte leaves)")
+    nrs = np.random.default_rng(rng.getrandbits(32))
+    for r, k, cols in ((1, 1, 1), (3, 5, 129), (9, 250, 257)):
+        check_gf(dev, errs, nrs.integers(0, 256, size=(r, k), dtype=np.uint8),
+                 nrs.integers(0, 256, size=(k, cols), dtype=np.uint8), f"{r}x{k} . {k}x{cols}")
+    codec = RSCodec(RS_K, RS_M)
+    x = nrs.integers(0, 256, size=(RS_K, N * SHARD_LEN), dtype=np.uint8)
+    check_gf(dev, errs, codec.encode_matrix, x, f"(the epoch's {RS_M}x{RS_K} encode matrix)")
+    missing = sorted(rng.sample(range(codec.n), RS_M))
+    xs = [j for j in range(codec.n) if j not in missing][:RS_K]
+    check_gf(dev, errs, gf256().lagrange_matrix(xs, missing), x,
+             f"(a decode matrix, {RS_M} random erasures)")
+
+
+def rs_plane_rows(dev, rng, errs: dict, launches: dict, lanes: dict, n: int = N) -> list:
+    """The plane's kernels at the epoch's shapes, read from its launches:
+    the GF product at its mean width (n encodes of one shard length: the
+    columns are n · shard length), a whole tree build (every tagged-hash
+    shape of the epoch) and the proof walk over the epoch's N² proofs with
+    corrupted roots and a corrupted leaf (against the plain version and the
+    host's native walk); then each timed at the path's mean width beside
+    the plain version and the bound (``roofline``'s integer term:
+    SHA_OPS a compression, ``gf_ops`` an output bit)."""
+    import numpy as np
+    import torch
+
+    from hbbft_tpu_torch.crypto.erasure import RSCodec
+    from hbbft_tpu_torch.crypto.merkle import MerkleTree, PackedProofs, _depth
+    from hbbft_tpu_torch.ops import gf256 as G, sha256 as S
+
+    nrs = np.random.default_rng(rng.getrandbits(32))
+    mean = {k: max(1, lanes[k] // max(1, launches[k])) for k in RS_KERNELS}
+    cols = mean["gf256_matmul"]
+    shard_len = max(1, cols // n)
+    f = (n - 1) // 3
+    k, m = n - 2 * f, 2 * f
+    rows = []
+
+    def row(name, source, replaces, fn, plain, width, nbytes, int_ops):
+        ms = time_ms(fn)
+        plain_ms = time_ms(plain, reps=3)
+        bound_ms, bound_by = roofline(nbytes, 0.0, int_ops=int_ops)
+        rows.append({
+            "name": name, "route": "cuda", "source": f"hbbft_tpu_torch/csrc/{source}",
+            "replaces": f"none (jnp graph: hbbft_tpu/ops/{replaces})",
+            "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "path": "epoch", "lanes": width,
+        })
+
+    codec = RSCodec(k, m)
+    x_np = nrs.integers(0, 256, size=(k, cols), dtype=np.uint8)
+    check_gf(dev, errs, codec.encode_matrix, x_np, f"(the epoch's mean width, {cols} columns)")
+    words = torch.as_tensor(G.pack_gf_matrix(codec.encode_matrix), device=dev)
+    x = torch.as_tensor(x_np, device=dev)
+    # bytes: the m x k GF matrix, the input and the output (the packed bit
+    # rows are the kernel's form of the matrix, not the function's input)
+    row("gf256_matmul", "gf256.cu", "gf256.py:76 gf256_matmul",
+        lambda: G.gf256_matmul(words, x), lambda: G.gf256_matmul_plain(words, x),
+        cols, m * k + x.numel() + m * cols, 8 * m * cols * gf_ops(k))
+
+    leaves = torch.as_tensor(nrs.integers(0, 256, size=(n, n, shard_len), dtype=np.uint8),
+                             device=dev)
+    check_tagged(dev, rng, errs, n * n, shard_len, 0, f"(the epoch's {n * n} leaves)")
+    host_trees = [MerkleTree([bytes(v) for v in t]) for t in leaves.cpu().numpy()]
+    for d, lvl in enumerate(S.tree_levels(leaves)):
+        got = lvl.cpu().numpy()
+        if any(got[t].tobytes() != b"".join(host_trees[t].levels[d]) for t in range(n)):
+            raise AssertionError(f"tree level {d} differs from the host MerkleTree")
+    log(f"tree_levels: {n} trees of {n} {shard_len}-byte leaves, every level equal to the "
+        f"host MerkleTree's")
+    n_tag = mean["sha256_tagged"]
+    check_tagged(dev, rng, errs, n_tag, 64, 1, f"(the epoch's mean width, {n_tag} node pairs)")
+    pairs = torch.as_tensor(nrs.integers(0, 256, size=(n_tag, 64), dtype=np.uint8), device=dev)
+    row("sha256_tagged", "sha256.cu", "sha256.py:179 tree_levels",
+        lambda: S.sha256_tagged(pairs, 1), lambda: S.sha256_tagged_plain(pairs, 1),
+        n_tag, n_tag * (64 + 32), n_tag * S.compressions(64) * SHA_OPS)
+
+    packed = PackedProofs.from_trees(host_trees, n, device=True)
+    roots = np.array(packed.roots, copy=True)
+    bad = sorted(rng.sample(range(len(packed)), 5))
+    for i in bad[:4]:
+        roots[i, rng.randrange(32)] ^= 1 << rng.randrange(8)
+    leaves_p = np.array(packed.leaves, copy=True)
+    leaves_p[bad[4], 0] ^= 0x80
+    args = [torch.as_tensor(a, device=dev) for a in (leaves_p, packed.paths, packed.indices,
+                                                     roots)]
+    got = S.verify_proofs(*args)
+    errs["sha256_proofs"] = max(errs.get("sha256_proofs", 0.0), same_bytes(
+        f"sha256_proofs ({len(packed)} proofs, depth {packed.paths.shape[1]})", got,
+        S.sha256_proofs_plain(*args)))
+    host = PackedProofs(leaves_p, packed.paths, packed.indices, roots, n).validate(1)
+    if got.cpu().tolist() != host or host != [i not in bad for i in range(len(packed))]:
+        raise AssertionError("sha256_proofs disagrees with the host proof walk")
+    log(f"sha256_proofs: {len(packed)} verdicts equal the host's native walk; the {len(bad)} "
+        f"corrupted proofs (4 roots, 1 leaf) rejected")
+    p, depth = len(packed), _depth(n)
+    row("sha256_proofs", "sha256.cu", "sha256.py:213 verify_proofs",
+        lambda: S.sha256_proofs(*args), lambda: S.sha256_proofs_plain(*args),
+        p, p * (shard_len + 32 * depth + 4 + 32 + 1),
+        p * (S.compressions(shard_len) + 2 * depth) * SHA_OPS)
+    return rows
 
 
 def phase_main(backend, rng, n: int, f: int, verify_items: int, combines: int,
@@ -852,6 +1080,13 @@ def phase_epoch(backend, seed: int, n: int, epochs: int, card: str, coin_rounds:
     from hbbft_tpu_torch import native
     from hbbft_tpu_torch.engine.array_engine import ArrayHoneyBadgerNet
 
+    # build and load the host's native GF(2^8) and SHA-256 kernels first,
+    # so that no timed epoch pays for them (round 3's re-commit on the
+    # plane, the whole plane on the kill switch): both arms start warm
+    t = time.perf_counter()
+    if not (native.available() and native.sha256_available()):
+        raise AssertionError("the native host kernels (gf256, sha256) were not built")
+    log(f"native host kernels (gf256, sha256) built and loaded: {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     net = ArrayHoneyBadgerNet(range(n), backend=backend, seed=seed, coin_rounds=coin_rounds)
     setup = time.perf_counter() - t
@@ -859,6 +1094,7 @@ def phase_epoch(backend, seed: int, n: int, epochs: int, card: str, coin_rounds:
     out = {"setup_seconds": setup, "epochs": []}
     for _ in range(epochs):
         contribs = draw_contributions(net)
+        before = backend.counters.snapshot()
         t = time.perf_counter()
         batches = net.run_epoch(contribs)
         if backend.device.type == "cuda":
@@ -867,10 +1103,19 @@ def phase_epoch(backend, seed: int, n: int, epochs: int, card: str, coin_rounds:
         check_batches(batches, net.ids, contribs, f"epoch {net.epoch - 1}")
         first = batches[net.ids[0]]
         rep = dataclasses.asdict(net.reports[-1])
-        out["epochs"].append({"seconds": secs, "report": rep})
+        after = backend.counters.snapshot()
+        # the epoch's own share of the plane's counters, and its Batch as a
+        # digest another arm's Batch is held to
+        own = {k: after[k] - before[k] for k in (
+            "device_dispatches", "host_bucket_rs_merkle", "device_seconds_rs_enc",
+            "device_seconds_rs_dec", "device_seconds_merkle")}
+        batch = hashlib.sha256(repr((first.epoch, sorted(first.contributions.items())))
+                               .encode()).hexdigest()
+        out["epochs"].append({"seconds": secs, "report": rep, "counters": own, "batch": batch})
         log(f"epoch {first.epoch} N={n} coin_rounds={coin_rounds} [{card}]: {secs:.3f} s, all "
             f"{n} nodes output the same Batch of {len(first.contributions)} contributions")
         log(f"  EpochReport: {json.dumps(rep)}")
+        log(f"  the epoch's plane counters: {json.dumps(own)}")
         # the reference engine's accounting of a coin round: every node
         # signs every instance's document (n²), every receiver checks every
         # other sender's share (n²(n−1)) and combines once per instance (n²)
@@ -880,10 +1125,7 @@ def phase_epoch(backend, seed: int, n: int, epochs: int, card: str, coin_rounds:
                 coin_rounds * n * n)
         if coin != want:
             raise AssertionError(f"the coin's counts are {coin}, not {want}")
-    # the RS/Merkle plane ran on the port's native C kernels, not hashlib,
-    # and the coin's documents on the native hash-to-G2
-    if not (native.available() and native.sha256_available()):
-        raise AssertionError("the native host kernels (gf256, sha256) were not built")
+    # the coin's documents were hashed on the native hash-to-G2
     if coin_rounds and not native.hashg2_available():
         raise AssertionError("the native hash-to-G2 kernel was not built")
     c = backend.counters.snapshot()
@@ -902,6 +1144,41 @@ def phase_epoch(backend, seed: int, n: int, epochs: int, card: str, coin_rounds:
     log(f"epoch host buckets [{card}]: {json.dumps(out['host_buckets'])}")
     log(f"epoch counters [{card}]: {json.dumps(out['counters'])}")
     return out
+
+
+def phase_rs_kill_switch(seed: int, n: int, plane: dict, card: str, device=None) -> dict:
+    """One epoch on a fresh net with the plane arm's seed under
+    HBBFT_TPU_NO_DEVICE_RS=1: the plane arm's first Batch and the same
+    EpochReport counts, none of the plane's kernels launched, and the plane
+    arm's first epoch billing the reference's plane dispatches more (one
+    encode, one tree build, one proof walk in round 1 and n in round 2)."""
+    from hbbft_tpu_torch.ops.backend import TorchBackend
+
+    os.environ["HBBFT_TPU_NO_DEVICE_RS"] = "1"
+    try:
+        reset_launches()
+        res = phase_epoch(TorchBackend(device=device), seed, n, 1, card)
+        launched = {k: kernel_fns()[k].launches for k in RS_KERNELS}
+    finally:
+        del os.environ["HBBFT_TPU_NO_DEVICE_RS"]
+    (off,), on = res["epochs"], plane["epochs"][0]
+    if off["batch"] != on["batch"]:
+        raise AssertionError("the kill-switch epoch's Batch differs from the plane arm's")
+    counts = [{k: v for k, v in e["report"].items() if k != "phase_seconds"} for e in (off, on)]
+    if counts[0] != counts[1]:
+        raise AssertionError(f"the kill-switch epoch's counts differ: {counts}")
+    if any(launched.values()) or off["counters"]["device_seconds_merkle"]:
+        raise AssertionError(f"the plane ran under HBBFT_TPU_NO_DEVICE_RS=1: {launched}")
+    plane_dispatches = on["counters"]["device_dispatches"] - off["counters"]["device_dispatches"]
+    if plane_dispatches != 3 + n:
+        raise AssertionError(f"the plane billed {plane_dispatches} dispatches, not {3 + n}")
+    res["plane_dispatches"] = plane_dispatches
+    log(f"kill-switch epoch N={n} [{card}]: the plane arm's Batch and counts; host_bucket_"
+        f"rs_merkle {off['counters']['host_bucket_rs_merkle']:.3f} s (plane arm's first epoch "
+        f"{on['counters']['host_bucket_rs_merkle']:.3f} s), device_dispatches "
+        f"{off['counters']['device_dispatches']} ({on['counters']['device_dispatches']}: "
+        f"{plane_dispatches} of the plane), epoch {off['seconds']:.3f} s ({on['seconds']:.3f} s)")
+    return res
 
 
 def _counter_delta(before: dict, after: dict, prefix: str) -> dict:
@@ -1377,19 +1654,21 @@ def bench_kernel_rows(dev, rng, seed: int, errs: dict, launches: dict, lanes: di
 def kernel_fns() -> dict:
     """Every kernel's wrapper (each counts its launches), by kernel name."""
     from hbbft_tpu_torch.ops import fq_limb_cuda as LK, fq_rns_cuda as K, probe_cuda as PK
-    from hbbft_tpu_torch.ops import tower_fused_cuda as TK
+    from hbbft_tpu_torch.ops import gf256 as G, sha256 as S, tower_fused_cuda as TK
 
     return {"fq_rns_mul": K.mul, "fq_rns_pow": K.pow_fixed, "tower_op": TK.tower_op,
             "miller_dbl": TK.miller_dbl, "hard_exp": TK.hard_exp,
             "fq_limb_mul": LK.mul, "fq_limb_pow": LK.pow_fixed,
-            "fq_rns_chain": K.mul_chain, "fma_probe": PK.fma_probe}
+            "fq_rns_chain": K.mul_chain, "fma_probe": PK.fma_probe,
+            "sha256_tagged": S.sha256_tagged, "sha256_proofs": S.sha256_proofs,
+            "gf256_matmul": G.gf256_matmul}
 
 
 def reset_launches() -> None:
     from hbbft_tpu_torch.ops import fq_limb_cuda as LK, fq_rns_cuda as K, probe_cuda as PK
-    from hbbft_tpu_torch.ops import tower_fused_cuda as TK
+    from hbbft_tpu_torch.ops import gf256 as G, sha256 as S, tower_fused_cuda as TK
 
-    for mod in (K, TK, LK, PK):
+    for mod in (K, TK, LK, PK, S, G):
         mod.reset_launches()
 
 
@@ -1407,7 +1686,8 @@ def read_launches(what: str, names) -> tuple:
 
 
 #: name prefixes of the hand-written kernels in a profiler trace
-OUR_KERNELS = ("fq_rns_mul", "fq_rns_pow", "tower_op", "miller_dbl", "hard_exp")
+OUR_KERNELS = ("fq_rns_mul", "fq_rns_pow", "tower_op", "miller_dbl", "hard_exp",
+               "sha256_tagged", "sha256_proofs", "gf256_matmul")
 
 
 @contextmanager
@@ -1534,7 +1814,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
 
     from hbbft_tpu_torch.ops import fq_limb_cuda as LK, fq_rns_cuda as K, probe_cuda as PK
-    from hbbft_tpu_torch.ops import tower_fused_cuda as TK
+    from hbbft_tpu_torch.ops import gf256 as G, sha256 as S, tower_fused_cuda as TK
     from hbbft_tpu_torch.ops.backend import TorchBackend
     from hbbft_tpu_torch.tools import kernel_bench
     from hbbft_tpu_torch.utils import cuda_build
@@ -1547,9 +1827,9 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     try:
         t = time.perf_counter()
-        sources = ["fq_rns", "tower_fused", "fq_limb", "probe"]
+        sources = ["fq_rns", "tower_fused", "fq_limb", "probe", "sha256", "gf256"]
         built = cuda_build.build(sources)  # one nvcc each, all started together
-        for mod in (K, TK, LK, PK):
+        for mod in (K, TK, LK, PK, S, G):
             mod.build()
         secs["build"] = time.perf_counter() - t
         log(f"build: {built} ({secs['build']:.2f} s)")
@@ -1574,6 +1854,7 @@ def main(argv=None) -> int:
         check_limb_kernels(dev, rng, LIMB_WIDTHS, errs)
         check_chain_kernel(dev, rng, CHAIN_WIDTHS, errs)
         check_probe(dev, args.seed, PK.REF_SHAPE, PK.REF_ITERS, errs)
+        check_rs_plane_kernels(dev, rng, errs)
         secs["kernels"] = time.perf_counter() - t
 
         backend = TorchBackend()
@@ -1609,7 +1890,11 @@ def main(argv=None) -> int:
         epoch_res = phase_epoch(epoch_backend, args.seed, N, EPOCHS, card)
         torch.cuda.synchronize()
         secs["epoch_phase"] = time.perf_counter() - t
-        launches, lanes = read_launches("the main path (whole N=100 epochs)", EPOCH_KERNELS)
+        launches, lanes = read_launches("the main path (whole N=100 epochs)",
+                                        EPOCH_KERNELS + RS_KERNELS)
+        if not (epoch_res["device_seconds"].get("rs_enc", 0) > 0
+                and epoch_res["device_seconds"].get("merkle", 0) > 0):
+            raise AssertionError("the epochs did not run on the device erasure/hash plane")
         widths = {"fq_rns_mul": dict(sorted(K.mul.widths.items())),
                   "fq_rns_pow": dict(sorted(K.pow_fixed.widths.items()))}
         widest_pow = K.pow_fixed.widest
@@ -1618,6 +1903,11 @@ def main(argv=None) -> int:
             f"{K.mul.broadcast_launches} of {K.mul.launches} launches; fq_rns_pow's "
             f"widest launch {widest_pow} lanes")
         result["fq_rns_mul_broadcast_launches"] = K.mul.broadcast_launches
+
+        t = time.perf_counter()
+        kill_res = phase_rs_kill_switch(args.seed, N, epoch_res, card)
+        torch.cuda.synchronize()
+        secs["rs_kill_switch_epoch"] = time.perf_counter() - t
 
         peaks = [torch.cuda.max_memory_allocated(dev)]
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1661,6 +1951,7 @@ def main(argv=None) -> int:
         for r in rows:  # the coin epoch's and the era change's beside the two epochs'
             r["coin_launches"] = coin_launches[r["name"]]
             r["era_launches"] = era_res["era_change"]["launches"][r["name"]]
+        rows += rs_plane_rows(dev, rng, errs, launches, lanes)
         rows += limb_kernel_rows(dev, rng, errs, limb_res["launches"], limb_res["lanes"])
         rows += bench_kernel_rows(dev, rng, args.seed, errs, bench_launches, bench_lanes,
                                   bench_res)
@@ -1680,7 +1971,7 @@ def main(argv=None) -> int:
     result.update({
         "n": N, "f": (N - 1) // 3, "path": path_res, "path_launches": path_launches,
         "stacked_arm": stacked_res, "limb_arm": limb_res, "sig_path": sig_res,
-        "epoch": epoch_res, "coin_epoch": coin_res, "era": era_res,
+        "epoch": epoch_res, "rs_kill_switch": kill_res, "coin_epoch": coin_res, "era": era_res,
         "bench": bench_res, "phase_seconds": secs,
         "path_device_dispatches": c.device_dispatches, "path_pairing_checks": c.pairing_checks,
         "path_rlc_groups": c.rlc_groups, "kernels": rows, "launch_widths_log2": widths,
@@ -1693,6 +1984,12 @@ def main(argv=None) -> int:
         f"{json.dumps(path_res['seconds'])}")
     log(f"seconds per N={N} epoch [{card}]: "
         f"{json.dumps([e['seconds'] for e in epoch_res['epochs']])}")
+    arms = {"plane": epoch_res["epochs"], "HBBFT_TPU_NO_DEVICE_RS=1": kill_res["epochs"]}
+    log(f"erasure/hash plane, per N={N} epoch [{card}]: " + json.dumps({
+        arm: {"seconds": [e["seconds"] for e in eps],
+              "host_bucket_rs_merkle": [e["counters"]["host_bucket_rs_merkle"] for e in eps],
+              "device_dispatches": [e["counters"]["device_dispatches"] for e in eps]}
+        for arm, eps in arms.items()}))
     log(f"limb arm N={N}, f={(N - 1) // 3} [{card}]: seconds "
         f"{json.dumps(limb_res['seconds'])}")
     log(f"sig path N={N} [{card}]: seconds {json.dumps(sig_res['seconds'])}; launches "

@@ -42,6 +42,11 @@ from hbbft_tpu_torch.crypto.keys import (
 class CryptoBackend(abc.ABC):
     """Factory + batched crypto operations over one group backend."""
 
+    #: True on backends whose erasure/hash plane runs on the device
+    #: (TorchBackend): the engine uses it to decide whether PackedProofs
+    #: may skip the native-SHA gate (crypto/merkle.py from_trees).
+    device_rs_plane: bool = False
+
     def __init__(self, group: Group) -> None:
         self.group = group
         from hbbft_tpu_torch.obs.hostbuckets import HostBuckets

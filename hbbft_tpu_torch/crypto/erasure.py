@@ -5,7 +5,7 @@ design is deliberately *matrix-multiplication shaped* so the same math runs
 as a numpy host path here and as a GF(2⁸) matmul kernel on a device, per
 BASELINE.json ("Reed–Solomon encode/decode in `broadcast::` moves to the
 same backend as GF(2^8) matmul").  The port's copy of the JAX package's
-``crypto/erasure.py``; its plane runs on the host.
+``crypto/erasure.py``; the device codec is ``ops/gf256.py``.
 
 Scheme: systematic Lagrange RS.  A block of k data shards (byte columns) is
 interpreted, per byte position, as evaluations of a degree-<k polynomial at

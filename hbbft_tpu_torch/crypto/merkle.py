@@ -171,20 +171,26 @@ class PackedProofs:
 
     @classmethod
     def from_trees(
-        cls, trees: Sequence["MerkleTree"], n_leaves: int
+        cls, trees: Sequence["MerkleTree"], n_leaves: int, device: bool = False
     ) -> Optional["PackedProofs"]:
         """Pack all proofs of ``trees`` (each with ``n_leaves`` real
         leaves of one uniform length).  Returns None when the native
         SHA kernel is unavailable or the shapes don't fit its limits —
-        callers fall back to per-proof objects."""
+        callers fall back to per-proof objects.  ``device=True`` skips
+        the native-kernel gate and its leaf-size cap: the packed form is
+        then destined for the batched device SHA-256 verify
+        (ops/backend.py merkle_verify_batch), which has neither limit;
+        uniformity checks still apply (the device walk needs rectangles)."""
         import numpy as np
 
         from hbbft_tpu_torch import native
 
-        if not trees or not native.sha256_available():
+        if not trees:
+            return None
+        if not device and not native.sha256_available():
             return None
         leaf_len = len(trees[0].leaves[0])
-        if leaf_len + 1 > 4096:
+        if not device and leaf_len + 1 > 4096:
             return None
         for t in trees:
             if len(t.leaves) != n_leaves or any(

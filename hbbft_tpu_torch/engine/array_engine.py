@@ -6,9 +6,11 @@ delivered in round r+1 (a zero-latency full-mesh network) — and execute
 each round as a handful of *batched* operations over the whole network
 instead of per-message dispatch:
 
-* merkle proof checks:   one batched hash call per round (N³ items, native C)
+* merkle proof checks:   one batched backend hash call per round (N³ items;
+                         on ``TorchBackend`` the device proof walk)
 * pairing verifications: one batched backend call per round (N³ items)
-* RS encode/decode:      per-instance GF(2⁸) matmul (native C)
+* RS encode/decode:      one batched backend GF(2⁸) product per epoch (on
+                         ``TorchBackend`` the device bit product)
 * threshold counting:    plain arithmetic (symmetric under lockstep)
 
 **Workload fidelity.** Per-receiver work is NOT deduplicated: every
@@ -62,7 +64,7 @@ from hbbft_tpu_torch.crypto.backend import CryptoBackend
 from hbbft_tpu_torch.crypto.erasure import rs_codec
 from hbbft_tpu_torch.crypto.merkle import MerkleTree, PackedProofs, _depth, validate_proofs
 from hbbft_tpu_torch.engine.dkg_batch import batched_encrypt, batched_era_dkg
-from hbbft_tpu_torch.ops.pipeline import hostpipe_enabled
+from hbbft_tpu_torch.ops.pipeline import device_rs_enabled, hostpipe_enabled
 from hbbft_tpu_torch.protocols.honey_badger import Batch
 from hbbft_tpu_torch.utils import canonical
 from hbbft_tpu_torch.utils.metrics import Counters
@@ -286,9 +288,11 @@ class ArrayHoneyBadgerNet:
                 for nid in self.ids
             ]
             if fast:
-                # erasure/hash plane behind the backend seam: the port's
-                # backend runs the per-item host loops (native C kernels)
-                # behind the batch entry points
+                # erasure/hash plane behind the backend seam: on
+                # TorchBackend the N encodes collapse into one batched
+                # GF(2⁸) bit product and the N tree builds into one
+                # batched device SHA-256 dispatch; host backends run the
+                # identical per-item loops behind the batch entry points
                 sh_lists = self.backend.rs_encode_batch(self.codec, framed_list)
                 tree_list = self.backend.merkle_build_batch(sh_lists)
                 for nid, sh, t in zip(self.ids, sh_lists, tree_list):
@@ -311,12 +315,19 @@ class ArrayHoneyBadgerNet:
         # passed down so the batched hasher repeats the WORK without
         # materializing millions of identical Python objects.  Fast path:
         # the proofs never exist as objects at all — array slices of the
-        # tree levels feed the C kernel directly (PackedProofs).
+        # tree levels feed the backend's proof walk directly (PackedProofs:
+        # the device kernel on TorchBackend, the C kernel on the host).
         proofs: Optional[List] = None
         packed: Optional[PackedProofs] = None
         with bk.region("rs_merkle"):
             if fast:
-                packed = PackedProofs.from_trees([trees[p] for p in self.ids], n)
+                # device=True lifts the native-SHA gate when the packed
+                # batch is headed for the device proof walk instead of
+                # the C kernel — the kill-switch arm keeps the host choice
+                packed = PackedProofs.from_trees(
+                    [trees[p] for p in self.ids], n,
+                    device=self.backend.device_rs_plane and device_rs_enabled(),
+                )
             if packed is None:
                 proofs = [trees[p].proof(s) for p in self.ids for s in range(n)]
         n_proofs = n * n
@@ -381,7 +392,8 @@ class ArrayHoneyBadgerNet:
                 rep.rs_reconstructs += reps
                 rep.hashes += reps * (2 * tree_size - 1)
             # ... and the Merkle re-commit of the reconstructed shard
-            # vector, batched across instances through the C hash kernel.
+            # vector, batched across instances through the host C hash
+            # kernel (on every backend, as in the JAX package's engine).
             roots = _roots_batch(
                 [full_shards[p] for p in self.ids], reps
             )

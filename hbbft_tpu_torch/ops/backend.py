@@ -34,6 +34,13 @@ signature and decryption combines share one Lagrange chunk body, and the
 era-change DKG's ``g1_lincomb`` (its device MSM) stages each lane-capped
 chunk through the single combines' ``_stage_combine``.
 
+The erasure/hash plane rides the same seam: RS encode/reconstruct as
+GF(2⁸) bit products (``ops/gf256.py``, kernel ``gf256_matmul``) and Merkle
+build/verify as batched SHA-256 (``ops/sha256.py``, kernels
+``sha256_tagged`` and ``sha256_proofs``), dispatched with kinds ``rs_enc``,
+``rs_dec`` and ``merkle``; ``HBBFT_TPU_NO_DEVICE_RS=1`` routes each of the
+four plane methods to the seam's host default.
+
 The RLC coefficients are drawn from the OS CSPRNG (``os.urandom``): a
 seeded generator would make them predictable and void the batch check.
 """
@@ -61,8 +68,12 @@ from hbbft_tpu_torch.crypto.keys import (
     Signature,
     SignatureShare,
 )
-from hbbft_tpu_torch.ops import curve, pairing, pairing_chain
-from hbbft_tpu_torch.ops.pipeline import DispatchPipeline, fetch_to_host, hostpipe_enabled
+from hbbft_tpu_torch.crypto.merkle import MerkleTree
+from hbbft_tpu_torch.ops import curve, pairing, pairing_chain, sha256
+from hbbft_tpu_torch.ops.gf256 import DecodeMatrixCache, gf256_matmul, pack_gf_matrix
+from hbbft_tpu_torch.ops.pipeline import (
+    DispatchPipeline, device_rs_enabled, fetch_to_host, hostpipe_enabled,
+)
 from hbbft_tpu_torch.ops.staging import StagingCache
 from hbbft_tpu_torch.utils.device import resolve
 from hbbft_tpu_torch.utils.tree import tree_map
@@ -147,6 +158,10 @@ class TorchBackend(CryptoBackend):
     (pass ``device="cpu"`` to run the plain versions on the CPU).
     Protocol-visible semantics are identical to the host golden path."""
 
+    #: the erasure/hash plane (RS bit products + device SHA-256 Merkle)
+    #: rides the dispatch seam here (the plane methods at the end of the
+    #: class); crypto/merkle.py's PackedProofs packing keys off this
+    device_rs_plane = True
     #: combine on device only when at least this many shares are batched
     device_combine_threshold = 8
     #: max ladder lanes (items × shares) per combine/generation dispatch
@@ -172,6 +187,11 @@ class TorchBackend(CryptoBackend):
         # share indices → Lagrange ladder rows: the engine's N²
         # combines per epoch all interpolate over the same indices
         self._prep_memo: Dict[Any, Tuple[np.ndarray, np.ndarray]] = {}
+        # the plane's constants: per-(k, m) encode bit matrices and the
+        # erasure-pattern-keyed LRU of decode bit matrices, both packed
+        # into the kernel's words (pack_gf_matrix)
+        self._rs_enc_bits: Dict[Tuple[int, int], torch.Tensor] = {}
+        self._rs_dec_cache = DecodeMatrixCache(device=self.device)
 
     def flush(self) -> None:
         """Resolve every pending (dispatched-but-unfetched) chunk."""
@@ -211,7 +231,9 @@ class TorchBackend(CryptoBackend):
             c.glv_table_field_muls += curve.glv_table_field_muls(bits) * lanes * ladders_per_lane
 
     def _tensor(self, arr) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
+        # writable too: a read-only buffer (np.frombuffer) would be shared
+        # by a CPU tensor that PyTorch may write
+        return torch.as_tensor(np.require(arr, requirements=("C", "W")), device=self.device)
 
     def _to_device_gather(self, points, to_device, transform=None):
         """Stage ``points`` with identity-deduplicated conversion: the
@@ -1022,3 +1044,160 @@ class TorchBackend(CryptoBackend):
             out[base : base + n] = ladder.from_device(fetched)[:n]
 
         self._dispatch_async(ladder.mul, args, kind=kind, items=n, on_result=deliver)
+
+    # -- device erasure/hash plane -------------------------------------------
+    #
+    # Every method is bit-identical to the CryptoBackend host default, and
+    # HBBFT_TPU_NO_DEVICE_RS=1 routes straight to it.  The explicit
+    # CryptoBackend.<method>(self, ...) calls keep the fallback usable from
+    # hybrids that borrow these methods unbound.
+
+    def rs_encode_batch(self, codec, datas: Sequence[bytes]) -> List[List[bytes]]:
+        """All blocks' parity in one batched bit product per shard length.
+
+        The N per-proposer encodes of an epoch share one (k, m) codec and
+        (near-always) one framed length, so they collapse into a single
+        (8m × 8k) · (8k × N·L) product."""
+        if not device_rs_enabled() or not datas or codec.m == 0:
+            return CryptoBackend.rs_encode_batch(self, codec, datas)
+        key = (codec.k, codec.m)
+        bits = self._rs_enc_bits.get(key)
+        if bits is None:
+            bits = self._rs_enc_bits[key] = self._tensor(pack_gf_matrix(codec.encode_matrix))
+        out: List[Optional[List[bytes]]] = [None] * len(datas)
+        by_len: Dict[int, List[int]] = {}
+        for i, d in enumerate(datas):
+            by_len.setdefault(codec.shard_length(len(d)), []).append(i)
+        k, m = codec.k, codec.m
+        for shard_len, idxs in by_len.items():
+            with self._host_assembly():
+                stack = np.empty((len(idxs), k, shard_len), dtype=np.uint8)
+                for row, i in enumerate(idxs):
+                    padded = datas[i].ljust(shard_len * k, b"\0")
+                    stack[row] = np.frombuffer(padded, dtype=np.uint8).reshape(k, shard_len)
+                # (G, k, L) → (k, G·L): per-block columns concatenate, so
+                # the whole group is ONE product against the shared matrix
+                mat = stack.transpose(1, 0, 2).reshape(k, len(idxs) * shard_len)
+                args = (bits, self._tensor(mat))
+            self.counters.device_dispatches += 1
+
+            def deliver(parity, idxs=tuple(idxs), stack=stack, L=shard_len):
+                par = parity.reshape(m, len(idxs), L)
+                for row, i in enumerate(idxs):
+                    out[i] = [stack[row, j].tobytes() for j in range(k)] + [
+                        par[j, row].tobytes() for j in range(m)
+                    ]
+
+            self._dispatch_async(gf256_matmul, args, kind="rs_enc", items=len(idxs),
+                                 on_result=deliver)
+        self._pipe.flush()
+        return out  # type: ignore[return-value]
+
+    def rs_reconstruct_batch(
+        self, codec, shard_lists: Sequence[Sequence[Optional[bytes]]]
+    ) -> List[List[bytes]]:
+        """All erasure repairs in one batched decode product per pattern.
+
+        Items are grouped by (present-k indices, missing indices, shard
+        length): the decode matrix is a constant per such pattern, served
+        from the bounded LRU.  Error cases (wrong slot count, too few
+        shards), the zero-math all-present case and ragged present shards
+        run the host codec inline, in item order, so raises and results
+        match the host loop exactly."""
+        if not device_rs_enabled() or not shard_lists:
+            return CryptoBackend.rs_reconstruct_batch(self, codec, shard_lists)
+        sls = [list(s) for s in shard_lists]
+        out: List[Optional[List[bytes]]] = [None] * len(sls)
+        groups: Dict[Tuple, List[int]] = {}
+        for i, shards in enumerate(sls):
+            present = [j for j, s in enumerate(shards) if s is not None]
+            if len(shards) != codec.n or len(present) < codec.k:
+                out[i] = codec.reconstruct(shards)  # the exact host raise
+                continue
+            missing = tuple(j for j, s in enumerate(shards) if s is None)
+            if not missing:
+                out[i] = codec.reconstruct(shards)  # zero GF math on the host too
+                continue
+            xs = tuple(present[: codec.k])
+            lens = {len(shards[j]) for j in xs}
+            if len(lens) != 1:
+                out[i] = codec.reconstruct(shards)  # host np.stack raises: keep it
+                continue
+            groups.setdefault((xs, missing, lens.pop()), []).append(i)
+        for (xs, missing, shard_len), idxs in groups.items():
+            with self._host_assembly():
+                bits = self._rs_dec_cache.get(xs, missing)
+                stack = np.empty((len(idxs), codec.k, shard_len), dtype=np.uint8)
+                for row, i in enumerate(idxs):
+                    for col, j in enumerate(xs):
+                        stack[row, col] = np.frombuffer(sls[i][j], dtype=np.uint8)
+                mat = stack.transpose(1, 0, 2).reshape(codec.k, len(idxs) * shard_len)
+                args = (bits, self._tensor(mat))
+            self.counters.device_dispatches += 1
+
+            def deliver(rec, idxs=tuple(idxs), missing=missing, L=shard_len):
+                r = rec.reshape(len(missing), len(idxs), L)
+                for row, i in enumerate(idxs):
+                    full = list(sls[i])
+                    for mrow, midx in enumerate(missing):
+                        full[midx] = r[mrow, row].tobytes()
+                    out[i] = full
+
+            self._dispatch_async(gf256_matmul, args, kind="rs_dec", items=len(idxs),
+                                 on_result=deliver)
+        self._pipe.flush()
+        return out  # type: ignore[return-value]
+
+    def merkle_build_batch(self, shard_lists: Sequence[Sequence[bytes]]) -> List[Any]:
+        """All proposers' Merkle trees in one batched SHA-256 dispatch.
+
+        Requires the rectangular case (uniform leaf count and length across
+        the batch: the epoch's trees, all over one codec's shards); any
+        other shape falls back to the host loop, including its empty-tree
+        raise.  The fetched levels are adopted without re-hashing
+        (``MerkleTree.from_levels``), so the trees are bit-identical to
+        host-built ones."""
+        sls = [list(sl) for sl in shard_lists]
+        if not device_rs_enabled() or not sls or not sls[0]:
+            return CryptoBackend.merkle_build_batch(self, sls)
+        n = len(sls[0])
+        leaf_len = len(sls[0][0])
+        if any(len(sl) != n or any(len(v) != leaf_len for v in sl) for sl in sls):
+            return CryptoBackend.merkle_build_batch(self, sls)
+        with self._host_assembly():
+            leaves = np.frombuffer(
+                b"".join(b"".join(sl) for sl in sls), dtype=np.uint8
+            ).reshape(len(sls), n, leaf_len)
+            args = (self._tensor(leaves),)
+        self.counters.device_dispatches += 1
+        trees: List[Any] = [None] * len(sls)
+
+        def deliver(levels):
+            for ti, sl in enumerate(sls):
+                trees[ti] = MerkleTree.from_levels(
+                    sl, [[lvl[ti, j].tobytes() for j in range(lvl.shape[1])] for lvl in levels]
+                )
+
+        self._dispatch_async(sha256.tree_levels, args, kind="merkle", items=len(sls),
+                             on_result=deliver)
+        self._pipe.flush()
+        return trees
+
+    def merkle_verify_batch(self, packed, reps: int = 1) -> List[bool]:
+        """All N² packed proofs walked on the device, ``reps`` times.
+
+        The repetition contract (one hash workload per simulated receiver)
+        is kept as ``reps`` SEPARATE dispatches over the same placed
+        tensors; verdicts are delivered from the first repetition."""
+        if not device_rs_enabled() or not len(packed):
+            return CryptoBackend.merkle_verify_batch(self, packed, reps=reps)
+        with self._host_assembly():
+            args = (self._tensor(packed.leaves), self._tensor(packed.paths),
+                    self._tensor(packed.indices), self._tensor(packed.roots))
+        verdicts: List[Any] = []
+        for rep in range(max(1, int(reps))):
+            self.counters.device_dispatches += 1
+            self._dispatch_async(sha256.verify_proofs, args, kind="merkle", items=len(packed),
+                                 on_result=verdicts.append if rep == 0 else None)
+        self._pipe.flush()
+        return [bool(v) for v in verdicts[0]]

@@ -48,6 +48,16 @@ def hostpipe_enabled() -> bool:
     return not os.environ.get("HBBFT_TPU_NO_HOSTPIPE")
 
 
+def device_rs_enabled() -> bool:
+    """Kill switch for the device erasure/hash plane: batched RS
+    encode/reconstruct as GF(2⁸) bit products and device SHA-256 Merkle
+    build/verify routed through the dispatch seam.
+    ``HBBFT_TPU_NO_DEVICE_RS=1`` restores the host codec/hashlib path
+    bit-for-bit.  Re-read per call so in-process A/Bs take effect
+    immediately."""
+    return not os.environ.get("HBBFT_TPU_NO_DEVICE_RS")
+
+
 def pipeline_depth() -> int:
     """Max in-flight dispatches.  Re-read per submit so in-process A/Bs
     (``HBBFT_TPU_NO_PIPELINE=1`` vs. default) take effect immediately."""

@@ -1,7 +1,8 @@
 """Card-only checks of the port: each CUDA kernel against its plain
 version (the field kernels of csrc/fq_rns.cu and csrc/fq_limb.cu, the
-fused tower kernels of csrc/tower_fused.cu and the FMA probe of
-csrc/probe.cu), the fused chain against the stacked one, and the
+fused tower kernels of csrc/tower_fused.cu, the FMA probe of
+csrc/probe.cu, and the erasure/hash plane's kernels of csrc/sha256.cu and
+csrc/gf256.cu), the fused chain against the stacked one, and the
 backend on the card against the backend on the CPU (the threshold-
 decryption and the signature/coin methods).
 
@@ -23,7 +24,10 @@ import pytest
 import torch
 
 from hbbft_tpu_torch.crypto.field import Q
+from hbbft_tpu_torch.crypto.erasure import RSCodec, gf256
+from hbbft_tpu_torch.crypto.merkle import MerkleTree, PackedProofs
 from hbbft_tpu_torch.ops import fq_limb as L, fq_limb_cuda as LK, probe_cuda as PK
+from hbbft_tpu_torch.ops import gf256 as G, sha256 as S
 from hbbft_tpu_torch.ops import fq_rns as R, fq_rns_cuda as K
 from hbbft_tpu_torch.ops import tower_fused as TF, tower_fused_cuda as TK
 from hbbft_tpu_torch.ops.backend import TorchBackend
@@ -39,6 +43,8 @@ def dev():
     TK.build()
     LK.build()
     PK.build()
+    S.build()
+    G.build()
     return torch.device("cuda", 0)
 
 
@@ -404,3 +410,110 @@ def test_fma_probe_within_its_tolerance(dev):
     assert PK.fma_probe.launches == n0 + 1
     rel = float(((got - want).abs() / want.abs()).max())
     assert rel <= PK.rel_tolerance(PK.REF_ITERS)
+
+
+# ---------------------------------------------------------------------------
+# The erasure/hash plane: csrc/sha256.cu and csrc/gf256.cu
+# ---------------------------------------------------------------------------
+
+#: message counts around the 64-thread blocks, and the epoch's N² leaves
+SHA_COUNTS = (1, 63, 64, 65, 1001, 10000)
+#: data lengths around the block-count steps (54/55: one to two blocks,
+#: 118/119: two to three), a node pair (64) and a long leaf
+SHA_LENGTHS = (0, 9, 54, 55, 64, 118, 119, 200, 1000)
+
+
+def _bytes(seed, *shape):
+    return np.random.default_rng(seed).integers(0, 256, size=shape, dtype=np.uint8)
+
+
+@pytest.mark.parametrize("length", SHA_LENGTHS)
+@pytest.mark.parametrize("n", SHA_COUNTS)
+def test_sha256_tagged_equals_plain(dev, n, length):
+    import hashlib
+
+    msgs = torch.as_tensor(_bytes(n + length, n, length), device=dev)
+    for tag in (0, 1):
+        n0 = S.sha256_tagged.launches
+        got = S.sha256_tagged(msgs, tag)
+        torch.cuda.synchronize()
+        assert S.sha256_tagged.launches == n0 + 1
+        assert torch.equal(got, S.sha256_tagged_plain(msgs, tag))
+        m, g = msgs.cpu().numpy(), got.cpu().numpy()
+        for i in {0, n // 2, n - 1}:
+            assert g[i].tobytes() == hashlib.sha256(bytes([tag]) + m[i].tobytes()).digest()
+
+
+@pytest.mark.parametrize("trees,n_leaves,leaf_len", [
+    (1, 1, 9), (3, 2, 1), (5, 6, 13), (100, 100, 9), (2, 100, 200)])
+def test_tree_levels_equal_the_host(dev, trees, n_leaves, leaf_len):
+    leaves = _bytes(trees + n_leaves, trees, n_leaves, leaf_len)
+    got = S.tree_levels(torch.as_tensor(leaves, device=dev))
+    for t in range(trees):
+        host = MerkleTree([bytes(v) for v in leaves[t]])
+        assert [b"".join(bytes(h) for h in lvl[t].cpu().numpy()) for lvl in got] == [
+            b"".join(lvl) for lvl in host.levels]
+
+
+@pytest.mark.parametrize("n_leaves,leaf_len", [(1, 9), (2, 1), (5, 13), (100, 9), (100, 200)])
+def test_sha256_proofs_equals_plain_and_the_host(dev, n_leaves, leaf_len):
+    """The walk over every proof of a few trees, some roots and one leaf
+    corrupted: bit-equal to the plain version, equal to the host's walk."""
+    trees = [MerkleTree([bytes(v) for v in t])
+             for t in _bytes(n_leaves * leaf_len, 3, n_leaves, leaf_len)]
+    p = PackedProofs.from_trees(trees, n_leaves, device=True)
+    roots, leaves = np.array(p.roots, copy=True), np.array(p.leaves, copy=True)
+    roots[len(p) - 1, 31] ^= 1
+    roots[0, 0] ^= 0x80
+    leaves[len(p) // 2, 0] ^= 1
+    args = [torch.as_tensor(a, device=dev) for a in (leaves, p.paths, p.indices, roots)]
+    n0 = S.sha256_proofs.launches
+    got = S.verify_proofs(*args)
+    torch.cuda.synchronize()
+    assert S.sha256_proofs.launches == n0 + 1 and got.dtype == torch.bool
+    assert torch.equal(got, S.sha256_proofs_plain(*args))
+    host = PackedProofs(leaves, p.paths, p.indices, roots, n_leaves).validate(1)
+    assert got.cpu().tolist() == host
+    assert host == [i not in (0, len(p) // 2, len(p) - 1) for i in range(len(p))]
+
+
+@pytest.mark.parametrize("r,k,cols", [
+    (1, 1, 1), (3, 5, 129), (66, 34, 1), (66, 34, 900), (9, 250, 257), (8, 256, 128),
+    (1, 34, 100000)])
+def test_gf256_matmul_equals_plain_and_the_host(dev, r, k, cols):
+    m, x = _bytes(r + k, r, k), _bytes(cols, k, cols)
+    words = torch.as_tensor(G.pack_gf_matrix(m), device=dev)
+    xt = torch.as_tensor(x, device=dev)
+    n0 = G.gf256_matmul.launches
+    got = G.gf256_matmul(words, xt)
+    torch.cuda.synchronize()
+    assert G.gf256_matmul.launches == n0 + 1
+    assert torch.equal(got, G.gf256_matmul_plain(words, xt))
+    assert np.array_equal(got.cpu().numpy(), gf256().matmul(m, x))
+
+
+def test_rs_plane_on_the_card_equals_the_cpu(dev):
+    """The backend's four plane methods on the card against the same
+    methods on the CPU (the plain versions): the epoch's codec, an erasure
+    pattern, its trees and proofs; the same dispatches."""
+    rng = random.Random(23)
+    codec = RSCodec(34, 66)
+    datas = [bytes(rng.randrange(256) for _ in range(283)) for _ in range(100)]
+    card, cpu = TorchBackend(), TorchBackend(device="cpu")
+    S.reset_launches()
+    G.reset_launches()
+    enc = card.rs_encode_batch(codec, datas)
+    assert enc == cpu.rs_encode_batch(codec, datas) == [codec.encode(d) for d in datas]
+    holes = [list(e) for e in enc[:8]]
+    for h in holes:
+        for j in rng.sample(range(100), 66):
+            h[j] = None
+    assert card.rs_reconstruct_batch(codec, holes) == cpu.rs_reconstruct_batch(codec, holes)
+    trees = card.merkle_build_batch(enc)
+    assert [t.levels for t in trees] == [t.levels for t in cpu.merkle_build_batch(enc)]
+    packed = PackedProofs.from_trees(trees, 100, device=True)
+    assert card.merkle_verify_batch(packed, reps=3) == [True] * 10000
+    cpu.merkle_verify_batch(packed, reps=3)
+    assert card.counters.device_dispatches == cpu.counters.device_dispatches == 1 + 8 + 1 + 3
+    assert G.gf256_matmul.launches == 9
+    assert S.sha256_proofs.launches == 3 and S.sha256_tagged.launches == 8

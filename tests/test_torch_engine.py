@@ -4,6 +4,7 @@ host kernels against numpy/hashlib.
 The port's ``ArrayHoneyBadgerNet`` on ``TorchBackend(device="cpu")`` (the
 fused chain's plain versions, the RLC grouped checks, the ladders) runs
 the same N=4, ``dedup_verifies=True``, ``coin_rounds=1``, 2-epoch schedule
+(its RS/Merkle work on the device plane, as on the card)
 as the JAX package's engine on its host golden ``CpuBackend`` (as
 tests/test_array_engine.py runs it): the Batches must be identical and
 every count field of every ``EpochReport`` equal, the coin's included.
@@ -95,6 +96,16 @@ def test_the_epoch_rode_the_fused_chain(runs):
     assert set(runs["net"].reports[-1].phase_seconds) == {"rbc", "coin", "ba", "decrypt"}
 
 
+def test_the_epoch_rode_the_rs_plane(runs):
+    """The erasure/hash plane is on by default: each epoch's encodes, tree
+    builds and proof walks ran as device dispatches of kinds rs_enc and
+    merkle, while its fault-free reconstructions needed no GF math."""
+    c = runs["net"].backend.counters
+    assert runs["net"].backend.device_rs_plane
+    assert c.device_seconds_rs_enc > 0 and c.device_seconds_merkle > 0
+    assert c.device_seconds_rs_dec == 0
+
+
 def test_the_coin_rounds_ran_on_the_device_paths(runs):
     """Each epoch ran one real coin round (N² signs, N² dedup'd share
     verifies, N combines) through the backend's sig/coin methods: sign
@@ -108,9 +119,17 @@ def test_the_coin_rounds_ran_on_the_device_paths(runs):
 
 
 def test_no_hostpipe_gives_the_same_batches(runs):
+    """The per-item loops give the same Batches and bill the same crypto
+    dispatches.  They bypass the erasure/hash plane, as the JAX package's
+    engine does, so each epoch bills the plane's dispatches fewer: one
+    encode, one tree build and one proof walk in each of rounds 1 and 2
+    (``dedup_verifies``: one repetition)."""
     net, batches = _port_run(hostpipe=False)
     assert _contribs(batches) == _contribs(runs["batches"])
-    assert net.backend.counters.device_dispatches == runs["net"].backend.counters.device_dispatches
+    plane = EPOCHS * (1 + 1 + 1 + 1)
+    assert net.backend.counters.device_dispatches == (
+        runs["net"].backend.counters.device_dispatches - plane)
+    assert net.backend.counters.device_seconds_merkle == 0
 
 
 def test_unported_options_raise(runs, monkeypatch):

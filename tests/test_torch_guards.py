@@ -9,6 +9,7 @@
 """
 
 import ast
+import hashlib
 import re
 from pathlib import Path
 
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from hbbft_tpu_torch.ops import fq, fq_limb, fq_limb_cuda, fq_rns, fq_rns_cuda, probe_cuda
+from hbbft_tpu_torch.ops import gf256, sha256
 from hbbft_tpu_torch.ops import tower_fused, tower_fused_cuda
 from hbbft_tpu_torch.ops.backend import TorchBackend
 from hbbft_tpu_torch.utils import cuda_build, device
@@ -46,7 +48,8 @@ def test_sources_found():
     assert len(SOURCES) >= 30
     assert _kernel_entry_points() >= {
         "fq_rns_mul", "fq_rns_pow", "fq_rns_chain", "tower_op", "miller_dbl", "hard_exp",
-        "fq_limb_mul", "fq_limb_pow", "fma_probe",
+        "fq_limb_mul", "fq_limb_pow", "fma_probe", "sha256_tagged", "sha256_proofs",
+        "gf256_matmul",
     }
     # the native host kernels' loader is one of the guarded modules
     assert PKG / "native" / "__init__.py" in SOURCES
@@ -66,7 +69,8 @@ def test_no_try_around_a_kernel_launch():
     sits outside any ``try`` body in the whole package."""
     launchers = _kernel_entry_points()
     wrappers = set()
-    for name in ("fq_rns_cuda.py", "tower_fused_cuda.py", "fq_limb_cuda.py", "probe_cuda.py"):
+    for name in ("fq_rns_cuda.py", "tower_fused_cuda.py", "fq_limb_cuda.py", "probe_cuda.py",
+                 "gf256.py", "sha256.py"):
         for node in ast.walk(ast.parse((PKG / "ops" / name).read_text())):
             if isinstance(node, ast.FunctionDef):
                 for call in ast.walk(node):
@@ -74,7 +78,7 @@ def test_no_try_around_a_kernel_launch():
                         if call.func.attr in launchers:
                             wrappers.add(node.name)
     assert {"mul", "pow_fixed", "mul_chain", "tower_op", "miller_dbl", "hard_exp",
-            "fma_probe"} <= wrappers
+            "fma_probe", "gf256_matmul", "sha256_tagged", "sha256_proofs"} <= wrappers
 
     offenders = []
     for path in SOURCES:
@@ -94,7 +98,8 @@ def test_no_try_around_a_kernel_launch():
                     if name in launchers or (
                         name in wrappers
                         and owner in ("fq_rns_cuda", "K", "tower_fused_cuda", "TK",
-                                      "fq_limb_cuda", "LK", "probe_cuda", "PK")
+                                      "fq_limb_cuda", "LK", "probe_cuda", "PK",
+                                      "gf256", "G", "sha256", "S")
                     ):
                         offenders.append(f"{path.name}:{call.lineno} {owner}.{name}")
     assert not offenders, offenders
@@ -148,6 +153,18 @@ def test_wrappers_never_fall_back_on_other_devices():
         tower_fused.hard_exp_packed(packed)
     with pytest.raises(ValueError):
         tower_fused.miller_double_step_rows(packed, packed[:6], packed[:2])
+    meta_bytes = torch.empty((4, 9), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError):
+        gf256.gf256_matmul(torch.empty((8, 1), dtype=torch.int32, device="meta"), meta_bytes)
+    with pytest.raises(ValueError):
+        sha256.sha256_tagged(meta_bytes, 0)
+    with pytest.raises(ValueError):
+        sha256.sha256_proofs(meta_bytes, torch.empty((4, 2, 32), dtype=torch.uint8,
+                                                     device="meta"),
+                             torch.empty(4, dtype=torch.int32, device="meta"),
+                             torch.empty((4, 32), dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError):  # operands on two devices
+        gf256.gf256_matmul(torch.empty((8, 1), dtype=torch.int32), meta_bytes)
 
 
 def test_cpu_wrappers_run_the_plain_version_without_building():
@@ -173,6 +190,17 @@ def test_cpu_wrappers_run_the_plain_version_without_building():
     probe_before = probe_cuda.fma_probe.launches
     probe_cuda.fma_probe(torch.ones((2, 3)), 4)
     assert probe_cuda.fma_probe.launches == probe_before
+    plane_before = [k.launches for k in (*sha256.KERNELS, gf256.gf256_matmul)]
+    msgs = torch.zeros((2, 5), dtype=torch.uint8)
+    assert sha256.sha256_tagged(msgs, 0)[0].numpy().tobytes() == hashlib.sha256(
+        bytes(6)).digest()
+    levels = sha256.tree_levels(msgs.reshape(1, 2, 5))
+    siblings = levels[0][0, [1, 0]].reshape(2, 1, 32)
+    assert sha256.verify_proofs(msgs, siblings, torch.tensor([0, 1], dtype=torch.int32),
+                                levels[1][0].expand(2, 32)).tolist() == [True, True]
+    words = torch.as_tensor(gf256.pack_gf_matrix(np.array([[3]], dtype=np.uint8)))
+    assert gf256.gf256_matmul(words, torch.tensor([[7]], dtype=torch.uint8)).item() == 9
+    assert [k.launches for k in (*sha256.KERNELS, gf256.gf256_matmul)] == plane_before
     assert not cuda_build._LIBS  # importing and CPU use never build a kernel
 
 

@@ -72,6 +72,48 @@ def test_bound_model(smoke):
     assert by == "operations" and ms == pytest.approx(1.0)
     ms, by = smoke.roofline(0, 67e9, 2 * 1979e9)
     assert ms == pytest.approx(2.0)
+    # the integer pipe: a quarter of the float32 rate, ~16.7 T ops/s
+    ms, by = smoke.roofline(0, 67e9, 0, int_ops=2 * 16.75e9)
+    assert by == "operations" and ms == pytest.approx(2.0)
+    assert smoke.SHA_OPS == 1384 and smoke.gf_ops(34) == 12  # LOP3 and IADD3: one op each
+    assert (smoke.RS_K, smoke.RS_M) == (34, 66)
+
+
+def test_rs_plane_checks_and_rows_at_a_tiny_size(smoke, capsys, monkeypatch):
+    """The plane's kernel checks (phase 2's edges at the epoch's codec) and
+    its rows at the shapes of an N=4 epoch, on the CPU (the wrappers run
+    the plain versions; the device timer is stubbed out)."""
+    errs: dict = {}
+    smoke.check_rs_plane_kernels("cpu", random.Random(5), errs)
+    assert set(errs) == {"sha256_tagged", "gf256_matmul"} and not any(errs.values())
+    monkeypatch.setattr(smoke, "time_ms", lambda fn, reps=7: (fn(), 0.0)[1])
+    launches = {"sha256_tagged": 3, "sha256_proofs": 5, "gf256_matmul": 1}
+    lanes = {"sha256_tagged": 3 * 8, "sha256_proofs": 5 * 16, "gf256_matmul": 4 * 9}
+    rows = smoke.rs_plane_rows("cpu", random.Random(6), errs, launches, lanes, n=4)
+    assert [r["name"] for r in rows] == ["gf256_matmul", "sha256_tagged", "sha256_proofs"]
+    for r in rows:
+        assert r["route"] == "cuda" and r["launches"] == launches[r["name"]]
+        assert r["bound_ms"] > 0 and r["max_abs_err"] == 0.0 and r["library_ms"] is None
+    assert [r["lanes"] for r in rows] == [36, 8, 16]
+    out = capsys.readouterr().out
+    assert "same bits: False" not in out and "equal the host's native walk" in out
+    assert "every level equal to the host MerkleTree's" in out
+    json.dumps(rows)
+
+
+def test_rs_kill_switch_epoch_at_a_tiny_size(smoke, capsys):
+    """Phase 4's plane arm and its kill-switch epoch at N=4 on the CPU: the
+    same Batch and counts, 3 + N plane dispatches fewer, no plane work."""
+    plane = smoke.phase_epoch(TorchBackend(device="cpu"), 0, 4, 1, "cpu")
+    assert plane["device_seconds"]["rs_enc"] > 0 and plane["device_seconds"]["merkle"] > 0
+    res = smoke.phase_rs_kill_switch(0, 4, plane, "cpu", device="cpu")
+    assert res["plane_dispatches"] == 7
+    (off,) = res["epochs"]
+    assert off["batch"] == plane["epochs"][0]["batch"]
+    assert off["counters"]["device_seconds_merkle"] == 0
+    assert "rs_enc" not in res["device_seconds"] and "merkle" not in res["device_seconds"]
+    assert "the plane arm's Batch and counts" in capsys.readouterr().out
+    json.dumps(res)
 
 
 def test_main_phase_at_a_tiny_size(smoke, capsys):
