@@ -91,17 +91,35 @@ Phases (any failure exits non-zero and prints no result line):
              the seam's default (2·``device_lane_cap``+5 terms: two device
              chunks and a host tail).  ``--era-only`` builds and runs this
              phase alone.
+   object  — the object runtime: HoneyBadger over the port's VirtualNet
+             (``NetBuilder(range(N)).num_faulty(f).defer_mode("round")``,
+             every epoch encrypted, net seed OBJECT_SEED, OBJECT_TXNS
+             transactions of OBJECT_TX_BYTES bytes a node from ``--seed``)
+             at OBJECT_SHAPES (N=32, f=10, one epoch; N=4, f=1, ten
+             epochs) on ``TorchBackend()``, then on the port's
+             ``MockBackend``: the same Batches (every correct node's
+             transactions in them), ``messages_delivered`` and ``cranks``
+             epoch for epoch and the same work counts (N² ciphertext checks
+             and N²(f+1) combined shares an epoch when every proposal is
+             in); per epoch the seconds, dispatches, device seconds by kind
+             and the host split (``HostSplit``); all five epoch kernels
+             launched; then each of the five against its plain version
+             at the phase's mean and widest launches.
+             ``--object-only`` builds and runs this phase alone.
    bench   — the port's kernel bench (``hbbft_tpu_torch.tools.kernel_bench``)
              at its default widths: M muls/s of both field arms and the RNS
              chain, TFLOP/s of the FMA probe.
              Kernel launch counts are zeroed just before each of phases 3,
              limb arm (in the child), sig path, 4, coin epoch, the era
-             change and bench, and read just after; every kernel of the
-             path must have launched.
+             change, object and bench, and read just after; every kernel of
+             the path must have launched.
 5. a ``{"kernels": [...]}`` line, one row per kernel: launches on its own
    path (epoch, limb arm or bench; the epoch kernels also carry their
    launches on the coin epoch, ``coin_launches``, and during the era
-   change, ``era_launches``; the plane's kernels are held at the epoch's
+   change, ``era_launches``; every row its launches on the object phase,
+   ``object_launches``, and each epoch kernel that phase's mean and widest
+   launch, ``object_mean_lanes`` and ``object_widest_lanes``; the plane's
+   kernels are held at the epoch's
    own shapes first: a whole tree build, the N² proof walk with corrupted
    roots and leaf), largest difference from the plain
    version (phase 2's widths and the path's), median kernel time at the
@@ -219,6 +237,18 @@ COMBINE_SAMPLES = 3
 ERA_N = 32
 #: g1_lincomb's terms held against a pure host fold of g1_mul
 LINCOMB_SAMPLE = 64
+#: the object runtime's shapes (N, f, epochs), both cut from BASELINE's N=100,
+#: whose object-runtime epoch is 6.94M deliveries of host Python (the array
+#: engine carries N=100): N=32 is the widest the object runtime routes
+#: through every device method (an instance combines f+1 = 11 shares, at
+#: least ``device_combine_threshold``); N=4 is BASELINE config 1
+#: (examples/simulation.rs: 4 nodes, f=1, 100 transactions a batch).
+OBJECT_SHAPES = ((32, 10, 1), (4, 1, 10))
+#: the object runtime's net seed (key generation, the faulty set, the
+#: random scheduler's draws); the transactions come from ``--seed``
+OBJECT_SEED = 11
+OBJECT_TXNS = 25  # transactions a node proposes an epoch
+OBJECT_TX_BYTES = 10
 
 #: the erasure/hash plane at the epoch's N: k = N - 2f data and m = 2f
 #: parity shards; 128-byte contributions frame to ~283 bytes, shards of 9
@@ -1403,6 +1433,212 @@ def check_lincomb(seed: int, card: str, device=None, lane_cap=None) -> dict:
             "default_seconds": default_secs, "dispatches": dispatches}
 
 
+def object_contributions(rng, n: int, epochs: int) -> list:
+    """Each epoch's proposals, node -> OBJECT_TXNS transactions of
+    OBJECT_TX_BYTES random bytes, no transaction drawn twice in the run."""
+    seen: set = set()
+    out = []
+    for _ in range(epochs):
+        epoch = {}
+        for nid in range(n):
+            txs = []
+            while len(txs) < OBJECT_TXNS:
+                tx = rng.getrandbits(8 * OBJECT_TX_BYTES).to_bytes(OBJECT_TX_BYTES, "big")
+                if tx not in seen:
+                    seen.add(tx)
+                    txs.append(tx)
+            epoch[nid] = txs
+        out.append(epoch)
+    return out
+
+
+#: the backend methods the object runtime calls: VirtualNet's round barrier
+#: (one call per kind a round) and the protocols' combines
+OBJECT_BACKEND_CALLS = ("verify_ciphertexts", "verify_dec_shares", "verify_sig_shares",
+                        "verify_signatures", "combine_decryption_shares", "combine_signatures")
+#: the backend counters both arms of the object phase must agree on
+OBJECT_COUNTS = ("ciphertexts_verified", "dec_shares_verified", "dec_shares_combined",
+                 "sig_shares_verified", "signatures_verified")
+
+
+class HostSplit:
+    """Host seconds of the object runtime by what ran: the proposers'
+    threshold encryptions (``PublicKeySet.encrypt``), the decryption shares
+    (``SecretKeyShare.decrypt_share_unchecked``), the public key shares the
+    protocols evaluate from the master commitment for each share they check
+    (``PublicKeySet.public_key_share``), and each backend call of
+    OBJECT_BACKEND_CALLS (timed to its return, so on the card a call
+    includes the device work it waits for).  Inside the ``with`` those
+    functions are wrapped by timers; only the outermost timed call counts,
+    so no second is counted twice.  ``rest(wall)`` is the remainder: the
+    protocol cranks, message routing and the round barrier's bookkeeping."""
+
+    HOST = (("PublicKeySet", "encrypt", "encrypt"),
+            ("SecretKeyShare", "decrypt_share_unchecked", "dec_share"),
+            ("PublicKeySet", "public_key_share", "key_share"))
+
+    def __init__(self, backend) -> None:
+        self.backend = backend
+        names = [what for _, _, what in self.HOST] + list(OBJECT_BACKEND_CALLS)
+        self.seconds = {k: 0.0 for k in names}
+        self.calls = {k: 0 for k in names}
+        self._depth = 0
+        self._saved: list = []
+
+    def _timed(self, fn, what):
+        def run(*a, **kw):
+            self._depth += 1
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._depth -= 1
+                if not self._depth:
+                    self.seconds[what] += time.perf_counter() - t
+                    self.calls[what] += 1
+        return run
+
+    def __enter__(self) -> "HostSplit":
+        from hbbft_tpu_torch.crypto import keys
+
+        for cls_name, name, what in self.HOST:
+            cls = getattr(keys, cls_name)
+            fn = cls.__dict__[name]
+            self._saved.append((cls, name, fn))
+            setattr(cls, name, self._timed(fn, what))
+        for name in OBJECT_BACKEND_CALLS:
+            setattr(self.backend, name, self._timed(getattr(self.backend, name), name))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+        for name in OBJECT_BACKEND_CALLS:
+            delattr(self.backend, name)
+
+    def split(self, wall: float) -> dict:
+        """Seconds by part (the backend's calls also summed as ``backend``,
+        zero parts left out) and the ``rest``."""
+        out = {k: v for k, v in self.seconds.items() if v}
+        out["backend"] = sum(self.seconds[k] for k in OBJECT_BACKEND_CALLS)
+        out["rest"] = wall - sum(self.seconds.values())
+        return out
+
+
+def run_object_net(backend, n: int, f: int, contribs: list, what: str) -> dict:
+    """HoneyBadger over the port's VirtualNet: ``NetBuilder(range(n))
+    .num_faulty(f).defer_mode("round").backend(backend)``, every epoch
+    encrypted, the net built from OBJECT_SEED.  Each epoch every node
+    proposes its transactions and the net cranks round by round until it is
+    quiet.  Raises unless every correct node output that epoch's Batch,
+    the same on all of them, holding every correct node's transactions.
+    Per epoch: its Batch digest, the running ``messages_delivered`` and
+    ``cranks``, seconds, dispatches, device seconds by kind and the host
+    split (HostSplit)."""
+    import torch
+
+    from hbbft_tpu_torch.net.virtual_net import NetBuilder
+    from hbbft_tpu_torch.protocols.honey_badger import EncryptionSchedule, HoneyBadger
+
+    def sync():
+        if getattr(backend, "device", None) is not None and backend.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    t = time.perf_counter()
+    net = (NetBuilder(range(n)).num_faulty(f).defer_mode("round").backend(backend)
+           .using(lambda ni, be: HoneyBadger(ni, be, session_id=b"chip-smoke",
+                                             encryption_schedule=EncryptionSchedule.always()))
+           .build(seed=OBJECT_SEED))
+    out = {"setup_seconds": time.perf_counter() - t,
+           "faulty": sorted(node.id for node in net.faulty_nodes()), "epochs": []}
+    correct = [node.id for node in net.correct_nodes()]
+    for e, proposals in enumerate(contribs):
+        c0 = backend.counters.snapshot()
+        split = HostSplit(backend)
+        t = time.perf_counter()
+        with split:
+            for nid in sorted(net.nodes):
+                net.send_input(nid, proposals[nid])
+            while net.queue or net._pending_work:
+                net.crank_round()
+            sync()
+        secs = time.perf_counter() - t
+        c1 = backend.counters.snapshot()
+        outs = [net.nodes[nid].outputs for nid in correct]
+        if any(len(o) != e + 1 for o in outs):
+            raise AssertionError(f"{what}: a correct node has no Batch for epoch {e}")
+        first = outs[0][e]
+        if any(o[e] != first for o in outs) or first.epoch != e:
+            raise AssertionError(f"{what}: the correct nodes output different Batches")
+        if any(first.contributions.get(p) != proposals[p] for p in correct):
+            raise AssertionError(f"{what}: the Batch lacks a correct node's transactions")
+        out["epochs"].append({
+            "batch": hashlib.sha256(repr((first.epoch, sorted(first.contributions.items())))
+                                    .encode()).hexdigest(),
+            "proposals": len(first.contributions),
+            "messages_delivered": net.messages_delivered, "cranks": net.cranks,
+            "seconds": secs, "device_dispatches": c1["device_dispatches"] - c0["device_dispatches"],
+            "device_seconds": _counter_delta(c0, c1, "device_seconds_"),
+            "host_seconds": split.split(secs),
+            "host_calls": {k: v for k, v in split.calls.items() if v},
+        })
+    c = backend.counters.snapshot()
+    out["counters"] = {k: c[k] for k in OBJECT_COUNTS}
+    out["device_dispatches"] = c["device_dispatches"]
+    return out
+
+
+def phase_object(seed: int, card: str, device=None, shapes=OBJECT_SHAPES) -> dict:
+    """The object runtime's main path: real-crypto HoneyBadger over the
+    port's VirtualNet on ``TorchBackend(device)`` at each of ``shapes``,
+    held against the same net on the port's ``MockBackend`` (the same seed
+    and transactions): the same Batches, ``messages_delivered`` and
+    ``cranks`` epoch for epoch and the same work counts.  With every
+    proposal in every Batch, N² ciphertext checks and N²(f+1) combined
+    shares an epoch; the share verifies are at most N²(N−1) an epoch (a
+    share that reaches an instance after it combined is dropped unchecked)."""
+    from hbbft_tpu_torch.crypto.backend import MockBackend
+    from hbbft_tpu_torch.ops.backend import TorchBackend
+
+    rng = random.Random(seed)
+    res: dict = {"shapes": []}
+    for n, f, epochs in shapes:
+        contribs = object_contributions(rng, n, epochs)
+        what = f"object runtime N={n}, f={f}"
+        real = run_object_net(TorchBackend(device), n, f, contribs, what)
+        mock = run_object_net(MockBackend(), n, f, contribs, what + " (mock)")
+        for key in ("batch", "proposals", "messages_delivered", "cranks"):
+            a, b = ([ep[key] for ep in arm["epochs"]] for arm in (real, mock))
+            if a != b:
+                raise AssertionError(f"{what}: {key} {a} on TorchBackend, {b} on MockBackend")
+        if real["counters"] != mock["counters"] or real["faulty"] != mock["faulty"]:
+            raise AssertionError(f"{what}: counts {real['counters']} on TorchBackend, "
+                                 f"{mock['counters']} on MockBackend")
+        cnt = real["counters"]
+        if all(ep["proposals"] == n for ep in real["epochs"]):
+            want = (epochs * n * n, epochs * n * n * (f + 1))
+            if (cnt["ciphertexts_verified"], cnt["dec_shares_combined"]) != want:
+                raise AssertionError(f"{what}: ciphertext checks and combined shares "
+                                     f"{cnt}, not {want}")
+        if not 0 < cnt["dec_shares_verified"] <= epochs * n * n * (n - 1):
+            raise AssertionError(f"{what}: {cnt['dec_shares_verified']} share verifies")
+        res["shapes"].append({"n": n, "f": f, "epochs": epochs, "torch": real, "mock": mock})
+        eps = real["epochs"]
+        log(f"{what}, {epochs} epoch(s) [{card}]: TorchBackend equals MockBackend epoch for "
+            f"epoch (Batches of {[ep['proposals'] for ep in eps]} proposals, "
+            f"messages_delivered {[ep['messages_delivered'] for ep in eps]}, cranks "
+            f"{[ep['cranks'] for ep in eps]}, faulty {real['faulty']}); counts "
+            f"{json.dumps(cnt)}")
+        log(f"{what} [{card}]: seconds per epoch {json.dumps([ep['seconds'] for ep in eps])} "
+            f"(MockBackend {json.dumps([ep['seconds'] for ep in mock['epochs']])}); "
+            f"device_dispatches per epoch {json.dumps([ep['device_dispatches'] for ep in eps])}")
+        for e, ep in enumerate(eps):
+            log(f"{what} epoch {e} [{card}]: device seconds by kind "
+                f"{json.dumps(ep['device_seconds'])}; host seconds {json.dumps(ep['host_seconds'])}"
+                f" over calls {json.dumps(ep['host_calls'])}")
+    return res
+
+
 def same(name: str, got, want) -> float:
     """max |kernel - plain|; raises unless the two are equal value for value
     (whether every bit agrees too, the signs of zeros included, is logged)."""
@@ -1418,25 +1654,48 @@ def same(name: str, got, want) -> float:
 
 
 def check_path_widths(dev, rng, errs: dict, launches: dict, lanes: dict, widest: dict,
-                      what: str) -> dict:
-    """``fq_rns_mul`` and ``fq_rns_pow`` against their plain versions at a
-    path's mean and widest launch widths (the coin epoch's, the era
-    change's; rows beyond 65,536 repeat 65,536 distinct lazy rows);
-    returns the widths checked."""
+                      what: str, names=("fq_rns_mul", "fq_rns_pow")) -> dict:
+    """The kernels ``names`` (``fq_rns_mul``, ``fq_rns_pow``,
+    ``miller_dbl``, ``hard_exp``, ``tower_op``: each of its seven kinds)
+    against their plain versions at a path's mean and widest launch
+    widths (the coin epoch's, the era change's, the object runtime's;
+    rows beyond 65,536 repeat 65,536 distinct lazy rows); returns the
+    widths checked."""
     import torch
 
     from hbbft_tpu_torch.crypto.field import Q
     from hbbft_tpu_torch.ops import fq_rns as R, fq_rns_cuda as K
+    from hbbft_tpu_torch.ops import tower_fused as TF, tower_fused_cuda as TK
 
     def rows(n):
         base = torch.as_tensor(lazy_rows(rng, min(n, 1 << 16), R)[0], device=dev)
         return base.repeat((-(-n // base.shape[0]), 1))[:n].contiguous()
 
     checked = {}
-    for name in ("fq_rns_mul", "fq_rns_pow"):
+    for name in names:
         mean = max(1, lanes[name] // max(1, launches[name]))
         checked[name] = sorted({mean, widest[name]})
         for n in checked[name]:
+            if name == "miller_dbl":
+                f, r, p = (tower_inputs(dev, rng, c, n) for c in (12, 6, 2))
+                (got_f, got_r), (want_f, want_r) = TK.miller_dbl(f, r, p), TF.dbl_plain(f, r, p)
+                errs[name] = max(errs.get(name, 0.0),
+                                 same(f"{name} f ({what}, {n} lanes)", got_f, want_f),
+                                 same(f"{name} R ({what}, {n} lanes)", got_r, want_r))
+                continue
+            if name == "hard_exp":
+                m = tower_inputs(dev, rng, 12, n)
+                errs[name] = max(errs.get(name, 0.0), same(
+                    f"{name} ({what}, {n} lanes)", TK.hard_exp(m), TF.hard_plain(m)))
+                continue
+            if name == "tower_op":
+                for idx, kind in enumerate(TF.OP_KINDS):
+                    c = TF._OP_BODY[kind][1]
+                    a, b = tower_inputs(dev, rng, c, n), tower_inputs(dev, rng, c, n)
+                    errs[name] = max(errs.get(name, 0.0), same(
+                        f"{name} {kind} ({what}, {n} lanes)", TK.tower_op(idx, a, b),
+                        TF.op_plain(kind, a, b)))
+                continue
             a = rows(n)
             if name == "fq_rns_mul":
                 b = torch.flip(a, dims=(0,)).contiguous()
@@ -1770,6 +2029,49 @@ def run_era(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
     return era_res
 
 
+def run_object(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
+    """The object runtime's phase on the card with the kernel launch counts
+    zeroed just before it and read just after (its five epoch kernels must
+    have launched), then each of the five against its plain version at the
+    phase's mean and widest launch widths."""
+    import torch
+
+    from hbbft_tpu_torch.ops import fq_rns_cuda as K, tower_fused_cuda as TK
+
+    reset_launches()
+    t = time.perf_counter()
+    res = phase_object(args.seed + 5, card)
+    torch.cuda.synchronize()
+    secs["object_phase"] = time.perf_counter() - t
+    res["all_launches"] = _launch_counts(kernel_fns())
+    res["launches"], res["lanes"] = read_launches(
+        "the object runtime (HoneyBadger over VirtualNet)", EPOCH_KERNELS)
+    res["widest"] = {"fq_rns_mul": K.mul.widest, "fq_rns_pow": K.pow_fixed.widest,
+                     "miller_dbl": TK.miller_dbl.widest, "hard_exp": TK.hard_exp.widest,
+                     "tower_op": TK.tower_op.widest}
+    res["launch_widths_log2"] = {"fq_rns_mul": dict(sorted(K.mul.widths.items()))}
+    log(f"object runtime [{card}]: widest launches {json.dumps(res['widest'])}; fq_rns_mul "
+        f"launch widths (key b: [2^(b-1), 2^b) lanes -> launches) "
+        f"{json.dumps(res['launch_widths_log2']['fq_rns_mul'])}")
+    t = time.perf_counter()
+    res["checked_widths"] = check_path_widths(
+        dev, rng, errs, res["launches"], res["lanes"], res["widest"], "object runtime",
+        names=tuple(res["widest"]))
+    secs["object_checks"] = time.perf_counter() - t
+    return res
+
+
+def log_object(res: dict, card: str) -> None:
+    for sh in res["shapes"]:
+        eps = sh["torch"]["epochs"]
+        log(f"object runtime N={sh['n']}, f={sh['f']} [{card}]: seconds per epoch "
+            f"{json.dumps([ep['seconds'] for ep in eps])}, device_dispatches per epoch "
+            f"{json.dumps([ep['device_dispatches'] for ep in eps])}, counts "
+            f"{json.dumps(sh['torch']['counters'])}")
+    log(f"object runtime launches [{card}]: {json.dumps(res['launches'])}; lanes "
+        f"{json.dumps(res['lanes'])}; widest {json.dumps(res['widest'])}")
+
+
 def log_era(era_res: dict, card: str) -> None:
     era = era_res["era_change"]
     log(f"era change N={era_res['n']}, f={era_res['f']} [{card}]: {era['seconds']:.3f} s, "
@@ -1787,8 +2089,12 @@ def main(argv=None) -> int:
                     help="run phases 3 and 4 again under torch.profiler")
     ap.add_argument("--era-n", type=int, default=ERA_N,
                     help=f"N of the era phase (default {ERA_N})")
-    ap.add_argument("--era-only", action="store_true",
-                    help="build the kernels, then run the era phase and its checks alone")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--era-only", action="store_true",
+                      help="build the kernels, then run the era phase and its checks alone")
+    only.add_argument("--object-only", action="store_true",
+                      help="build the kernels, then run the object runtime's phase and its "
+                           "checks alone")
     # the limb arm's child process (phase_limb_arm starts it)
     ap.add_argument("--limb-arm", nargs=2, metavar=("IN", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -1834,13 +2140,16 @@ def main(argv=None) -> int:
         secs["build"] = time.perf_counter() - t
         log(f"build: {built} ({secs['build']:.2f} s)")
         result["build"] = kernel_bench.build_report(dev, log, sources)
-        if args.era_only:
-            era_res = run_era(args, dev, rng, {"fq_rns_mul": 0.0, "fq_rns_pow": 0.0}, card,
-                              secs)
-            result.update(era=era_res, phase_seconds=secs)
-            with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_era.json"), "w") as fh:
+        alone = [(name, run, log_fn) for flag, name, run, log_fn in (
+            (args.era_only, "era", run_era, log_era),
+            (args.object_only, "object_runtime", run_object, log_object)) if flag]
+        if alone:  # one phase and its checks, after the build
+            (name, run, log_fn), = alone
+            res = run(args, dev, rng, {"fq_rns_mul": 0.0, "fq_rns_pow": 0.0}, card, secs)
+            result.update({name: res, "phase_seconds": secs})
+            with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_{name}.json"), "w") as fh:
                 json.dump(result, fh, indent=1)
-            log_era(era_res, card)
+            log_fn(res, card)
             log(f"phase seconds [{card}]: {json.dumps(secs)}")
             log(card)
             log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1937,6 +2246,7 @@ def main(argv=None) -> int:
 
         peaks.append(torch.cuda.max_memory_allocated(dev))
         era_res = run_era(args, dev, rng, errs, card, secs)
+        object_res = run_object(args, dev, rng, errs, card, secs)
 
         reset_launches()
         t = time.perf_counter()
@@ -1955,6 +2265,12 @@ def main(argv=None) -> int:
         rows += limb_kernel_rows(dev, rng, errs, limb_res["launches"], limb_res["lanes"])
         rows += bench_kernel_rows(dev, rng, args.seed, errs, bench_launches, bench_lanes,
                                   bench_res)
+        for r in rows:  # every kernel's launches on the object runtime's phase
+            r["object_launches"] = object_res["all_launches"][r["name"]]
+            if r["name"] in object_res["widest"]:
+                r["object_mean_lanes"] = (object_res["lanes"][r["name"]]
+                                          / object_res["launches"][r["name"]])
+                r["object_widest_lanes"] = object_res["widest"][r["name"]]
         secs["timing"] = time.perf_counter() - t
         prof = None
         if args.profile:
@@ -1972,6 +2288,7 @@ def main(argv=None) -> int:
         "n": N, "f": (N - 1) // 3, "path": path_res, "path_launches": path_launches,
         "stacked_arm": stacked_res, "limb_arm": limb_res, "sig_path": sig_res,
         "epoch": epoch_res, "rs_kill_switch": kill_res, "coin_epoch": coin_res, "era": era_res,
+        "object_runtime": object_res,
         "bench": bench_res, "phase_seconds": secs,
         "path_device_dispatches": c.device_dispatches, "path_pairing_checks": c.pairing_checks,
         "path_rlc_groups": c.rlc_groups, "kernels": rows, "launch_widths_log2": widths,
@@ -2000,6 +2317,7 @@ def main(argv=None) -> int:
         f"{json.dumps(coin_res['device_seconds'])}, launches {json.dumps(coin_launches)}, "
         f"lanes {json.dumps(coin_lanes)}, peak memory {coin_res['peak_memory_bytes']} bytes")
     log_era(era_res, card)
+    log_object(object_res, card)
     log(f"phase seconds [{card}]: {json.dumps(secs)}")
     log(f"path device_dispatches={c.device_dispatches} pairing_checks={c.pairing_checks} "
         f"rlc_groups={c.rlc_groups} peak_memory_bytes={result['peak_memory_bytes']} [{card}]")

@@ -15,9 +15,16 @@ A backend bundles:
   device backend can resolve a whole crank-round of pairing checks in one
   dispatch (SURVEY.md §7 "deferred verification").
 
-The port carries the abstract seam only; its implementation is
-``TorchBackend`` (hbbft_tpu_torch/ops/backend.py).  The host defaults
-below are the per-item golden loops.
+Implementations:
+
+* :class:`MockBackend`   — MockGroup; replaces the reference's
+  `use-insecure-test-only-mock-crypto` Cargo feature (SURVEY.md §2.2).
+  The object runtime's protocol tests run on it.
+* :class:`CpuBackend`    — pure-Python BLS12-381 golden reference.
+* ``TorchBackend`` (hbbft_tpu_torch/ops/backend.py) — the batched device
+  paths on the hand-written CUDA kernels.
+
+The host defaults of the ABC below are the per-item golden loops.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import abc
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-from hbbft_tpu_torch.crypto.group import Group
+from hbbft_tpu_torch.crypto.group import Group, MockGroup
 from hbbft_tpu_torch.crypto.keys import (
     Ciphertext,
     DecryptionShare,
@@ -345,3 +352,60 @@ class CryptoBackend(abc.ABC):
         """Era-turnover hook (the engine calls it after every DKG):
         device backends drop per-era staged key material (the limb-row
         staging cache); host backends have nothing staged."""
+
+
+class MockBackend(CryptoBackend):
+    """Fast insecure backend for protocol-logic tests (mock bilinear group).
+
+    The batched verifies are plain loops; the deferred entry points are the
+    ABC's defaults.  (The JAX package's copy also routes them through a
+    chunked out-of-order pipeline for its schedule explorer, which the port
+    does not have yet.)
+    """
+
+    def __init__(self) -> None:
+        super().__init__(MockGroup())
+
+    def verify_sig_shares(self, items) -> List[bool]:
+        # Inlined mock math (e(a,b) = a·b over Z_r): the generic loop costs
+        # several Python frames per item.  Same equation as
+        # PublicKeyShare.verify_sig_share.
+        c = self.counters
+        c.sig_shares_verified += len(items)
+        c.pairing_checks += len(items)
+        r = self.group.r
+        h2 = self.group.hash_to_g2
+        return self._traced(
+            "pairing",
+            len(items),
+            lambda: [share.el % r == (pk.el * h2(doc)) % r for pk, doc, share in items],
+        )
+
+    def verify_dec_shares(self, items) -> List[bool]:
+        # Same equation as PublicKeyShare.verify_decryption_share.
+        c = self.counters
+        c.dec_shares_verified += len(items)
+        c.pairing_checks += len(items)
+        r = self.group.r
+        return self._traced(
+            "pairing",
+            len(items),
+            lambda: [
+                (share.el * ct.hash_point()) % r == (pk.el * ct.w) % r
+                for pk, ct, share in items
+            ],
+        )
+
+
+class CpuBackend(CryptoBackend):
+    """Pure-Python BLS12-381 — the golden reference backend.
+
+    Slow (Python-int pairings) but real: used to golden-test both the
+    protocol layer and the JAX kernels.  Imported lazily to keep MockBackend
+    import-light.
+    """
+
+    def __init__(self) -> None:
+        from hbbft_tpu_torch.crypto.bls381 import BLS381Group
+
+        super().__init__(BLS381Group())

@@ -26,7 +26,8 @@ jitted graphs of the JAX package are plain functions here; on the card
 every field product inside them runs through the kernels of
 ``ops/fq_rns_cuda.py``, and every verification graph rides the fused
 tower kernels (``ops/pairing_chain.py``) unless
-``HBBFT_TPU_NO_FUSED_TOWER=1`` — resolved per dispatch and billed by
+``HBBFT_TPU_NO_FUSED_TOWER=1`` or ``HBBFT_TPU_FUSED_TOWER=0``/``off`` —
+resolved per dispatch and billed by
 ``_bill_chain``.  ``g1_mul_batch``/``g2_mul_batch`` (the batched
 threshold encryption of the array engine) and ``sign_shares_batch`` (the
 coin's shares) ride the same ladders as decryption-share generation; the

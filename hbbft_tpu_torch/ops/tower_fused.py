@@ -60,14 +60,19 @@ _X_CHAIN_BITS = np.array([int(b) for b in bin(BLS_X)[3:]], dtype=np.int32)
 
 def fused_tower_mode() -> bool:
     """Whether verification graphs ride the fused chain — read per call,
-    never cached.  ``HBBFT_TPU_NO_FUSED_TOWER=1`` restores the stacked
-    composition (the reference's kill switch).  On a CUDA tensor the
-    fused chain launches the kernels; on a CPU tensor it runs their plain
-    versions.  The fused kernels read 79-wide residue rows, so the limb
-    arm (``HBBFT_TPU_FQ_IMPL=limb``) always takes the stacked chain."""
+    never cached.  ``HBBFT_TPU_NO_FUSED_TOWER=1``, or
+    ``HBBFT_TPU_FUSED_TOWER`` set to ``0`` or ``off``, restores the stacked
+    composition, as the reference reads both; any other value of the
+    latter (``auto``, ``native``, ``interpret``) or none keeps the fused
+    chain, the card's default.  On a CUDA tensor the fused chain launches
+    the kernels; on a CPU tensor it runs their plain versions.  The fused
+    kernels read 79-wide residue rows, so the limb arm
+    (``HBBFT_TPU_FQ_IMPL=limb``) always takes the stacked chain."""
     if fq.IMPL != "rns":
         return False
-    return not os.environ.get("HBBFT_TPU_NO_FUSED_TOWER")
+    if os.environ.get("HBBFT_TPU_NO_FUSED_TOWER"):
+        return False
+    return os.environ.get("HBBFT_TPU_FUSED_TOWER", "auto") not in ("0", "off")
 
 
 # ---------------------------------------------------------------------------

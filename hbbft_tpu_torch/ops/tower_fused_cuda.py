@@ -18,7 +18,7 @@ Their plain PyTorch versions are ``op_plain``, ``dbl_plain`` and
 functions for CUDA tensors only.  Each function here checks its operands,
 allocates the outputs and the per-block scratch, launches on the current
 stream, raises if the launch is refused, and counts its launches in
-``.launches`` (and the lanes they covered in ``.lanes``).
+``.launches`` (the lanes they covered in ``.lanes``, the widest in ``.widest``).
 
 Operands are packed (C, lanes, 79) float32 tensors, C the element's Fq
 coefficient count.
@@ -129,6 +129,7 @@ def _scratch(slots: int, n: int, lb: int, device) -> torch.Tensor:
 def _count(fn, n: int) -> None:
     fn.launches += 1
     fn.lanes += n
+    fn.widest = max(fn.widest, n)
 
 
 def tower_op(kind: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -219,12 +220,14 @@ KERNELS = (tower_op, miller_dbl, hard_exp)
 for _fn in KERNELS:
     _fn.launches = 0
     _fn.lanes = 0  # lanes over all launches (lanes / launches = mean launch width)
+    _fn.widest = 0  # the widest launch's lanes
 
 
 def reset_launches() -> None:
     for fn in KERNELS:
         fn.launches = 0
         fn.lanes = 0
+        fn.widest = 0
 
 
 def build() -> Dict[str, float]:

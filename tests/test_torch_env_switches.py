@@ -258,3 +258,37 @@ def test_rlc_bits_is_read_per_batch_like_the_reference(bits, monkeypatch):
         got[name] = (rbits.shape, n_items, b.counters.ladder_field_muls, b.counters.rlc_groups)
     assert got["port"] == got["ref"]
     assert got["port"][0] == (4, 8, width)
+
+
+# -- HBBFT_TPU_FUSED_TOWER ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("value", ["off", "0", "auto", None])
+def test_fused_tower_off_takes_the_stacked_chain(value, monkeypatch):
+    """``HBBFT_TPU_FUSED_TOWER=off`` (or ``0``) routes one
+    ``verify_ciphertexts`` of one ciphertext through the stacked chain and
+    bills the reference's counters for its routing (``_bill_chain`` of the
+    reference's ``fused_tower_mode()``, which compiles nothing); ``auto``
+    and an unset variable keep the port's fused default."""
+    from hbbft_tpu.ops import tower_fused as JTF
+
+    monkeypatch.delenv("HBBFT_TPU_NO_FUSED_TOWER", raising=False)
+    if value is None:
+        monkeypatch.delenv("HBBFT_TPU_FUSED_TOWER", raising=False)
+    else:
+        monkeypatch.setenv("HBBFT_TPU_FUSED_TOWER", value)
+    port = TorchBackend(device="cpu")
+    pks = port.generate_key_set(1, random.Random(5)).public_keys()
+    ct = pks.encrypt(b"one ciphertext", random.Random(6))
+    assert port.verify_ciphertexts([ct]) == [True]
+    keys = ("fused_tower_calls", "fused_chain_field_muls", "fused_chain_pallas_calls",
+            "stacked_chain_pallas_calls")
+    got = {k: getattr(port.counters, k) for k in keys}
+    stacked = value in ("off", "0")
+    assert (got["fused_tower_calls"] == 0) == stacked
+    assert (got["stacked_chain_pallas_calls"] > 0) == stacked
+    if stacked:
+        assert JTF.fused_tower_mode() is None
+        ref = _bare(True)
+        TpuBackend._bill_chain(ref, JTF.fused_tower_mode(), 1)
+        assert got == {k: getattr(ref.counters, k) for k in keys}

@@ -231,3 +231,41 @@ def test_era_phase_at_a_tiny_size(smoke, capsys):
     out = capsys.readouterr().out
     assert "re-encodes byte-equal" in out and "equals the host fold at 64 terms" in out
     json.dumps(res)
+
+
+def test_object_phase_at_a_tiny_size(smoke, capsys):
+    """The object runtime's phase at N=4, f=1, seed 11, one epoch, on
+    ``TorchBackend(device="cpu")`` (the kernels' plain versions): real-
+    crypto HoneyBadger over VirtualNet gives the port's MockBackend run's
+    Batch, its 348 deliveries and cranks and its work counts (the JAX
+    package's MockBackend and CpuBackend agree at this shape); the host
+    split covers the epoch and the timed functions are restored after."""
+    from hbbft_tpu_torch.crypto.keys import PublicKeySet, SecretKeyShare
+
+    timed = (PublicKeySet.encrypt, PublicKeySet.public_key_share,
+             SecretKeyShare.decrypt_share_unchecked)
+    res = smoke.phase_object(11, "cpu", device="cpu", shapes=((4, 1, 1),))
+    assert timed == (PublicKeySet.encrypt, PublicKeySet.public_key_share,
+                     SecretKeyShare.decrypt_share_unchecked)
+    (sh,) = res["shapes"]
+    real, mock = sh["torch"], sh["mock"]
+    (ep,), (mep,) = real["epochs"], mock["epochs"]
+    assert (ep["messages_delivered"], ep["cranks"], ep["proposals"]) == (348, 348, 4)
+    assert ep["batch"] == mep["batch"] and real["faulty"] == mock["faulty"] == [1]
+    assert real["counters"] == mock["counters"]
+    assert (real["counters"]["ciphertexts_verified"], real["counters"]["dec_shares_verified"],
+            real["counters"]["dec_shares_combined"]) == (16, 36, 32)
+    assert ep["device_dispatches"] > 0 and mep["device_dispatches"] == 0
+    calls = ep["host_calls"]
+    assert (calls["encrypt"], calls["dec_share"], calls["combine_decryption_shares"]) == (4, 16, 16)
+    assert calls["key_share"] == 36  # one per share checked
+    assert ep["host_seconds"]["rest"] >= 0 and ep["host_seconds"]["backend"] > 0
+    assert "TorchBackend equals MockBackend epoch for epoch" in capsys.readouterr().out
+    json.dumps(res)
+
+
+def test_object_contributions_are_distinct(smoke):
+    txs = smoke.object_contributions(random.Random(0), 4, 10)
+    flat = [tx for ep in txs for node in ep.values() for tx in node]
+    assert len(txs) == 10 and all(len(node) == 25 for ep in txs for node in ep.values())
+    assert len(set(flat)) == len(flat) == 1000 and {len(tx) for tx in flat} == {10}
