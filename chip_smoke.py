@@ -106,19 +106,49 @@ Phases (any failure exits non-zero and prints no result line):
              launched; then each of the five against its plain version
              at the phase's mean and widest launches.
              ``--object-only`` builds and runs this phase alone.
+   dynamic — the dynamic protocols: SenderQueue ⊃ QueueingHoneyBadger ⊃
+             DynamicHoneyBadger ⊃ HoneyBadger over the port's VirtualNet
+             (round barrier, net seed DYNAMIC_SEED, batch size
+             DYNAMIC_BATCH, OBJECT_TXNS transactions of OBJECT_TX_BYTES
+             bytes a node a push, drawn from ``--seed``) at DYNAMIC_SHAPES
+             on ``TorchBackend()``, each held against the same net on the
+             port's ``MockBackend``: (a) N=4, f=1 with validator 3 voted out
+             (era 1) and back in with its own key through SyncKeyGen (era
+             2), the schedule of the reference's churn test, then a second
+             push committed; (b) N=16, f=5 in steady state: each queue
+             starts with 24 of the node's transactions, the 25th is pushed,
+             and one batch commits all 400.
+             Both arms must give the same batches on every correct node,
+             deliveries, cranks, era changes, work counts and host crypto
+             calls, every pushed transaction committed exactly once.  Then
+             (c) the array engine's era change at N=DYNAMIC_DKG_N=3, f=0
+             under ``HBBFT_TPU_DKG=pernode`` and ``batched`` (equal DKG
+             counts, an epoch under each new key set).  Logged: seconds per
+             stage and per batch, dispatches, device seconds by kind and the
+             host split (``DynamicSplit``); all five epoch kernels launched,
+             then each against its plain version at the phase's mean and
+             widest launches.  It runs after the object phase, alone.  Its
+             budget is 200 s on the card: (a) ~110, (b) ~40, (c) ~35, the
+             checks ~6, most of it the host's pairing-checked SyncKeyGen
+             decryptions and host combines.  (b) is one batch and (c) is at
+             N=3 to fit that budget: the smoke's other phases take 790–1,030
+             s of its 1,200 s on the card.
+             ``--dynamic-only`` builds and runs this phase alone.
    bench   — the port's kernel bench (``hbbft_tpu_torch.tools.kernel_bench``)
              at its default widths: M muls/s of both field arms and the RNS
              chain, TFLOP/s of the FMA probe.
              Kernel launch counts are zeroed just before each of phases 3,
              limb arm (in the child), sig path, 4, coin epoch, the era
-             change, object and bench, and read just after; every kernel of
-             the path must have launched.
+             change, object, dynamic and bench, and read just after; every
+             kernel of the path must have launched.
 5. a ``{"kernels": [...]}`` line, one row per kernel: launches on its own
    path (epoch, limb arm or bench; the epoch kernels also carry their
    launches on the coin epoch, ``coin_launches``, and during the era
    change, ``era_launches``; every row its launches on the object phase,
    ``object_launches``, and each epoch kernel that phase's mean and widest
-   launch, ``object_mean_lanes`` and ``object_widest_lanes``; the plane's
+   launch, ``object_mean_lanes`` and ``object_widest_lanes``; the same for
+   the dynamic phase, ``dynamic_launches``, ``dynamic_mean_lanes`` and
+   ``dynamic_widest_lanes``; the plane's
    kernels are held at the epoch's
    own shapes first: a whole tree build, the N² proof walk with corrupted
    roots and leaf), largest difference from the plain
@@ -141,6 +171,7 @@ is also written to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import hashlib
 import json
@@ -1433,8 +1464,8 @@ def check_lincomb(seed: int, card: str, device=None, lane_cap=None) -> dict:
             "default_seconds": default_secs, "dispatches": dispatches}
 
 
-def object_contributions(rng, n: int, epochs: int) -> list:
-    """Each epoch's proposals, node -> OBJECT_TXNS transactions of
+def object_contributions(rng, n: int, epochs: int, txns: int = OBJECT_TXNS) -> list:
+    """Each epoch's proposals, node -> ``txns`` transactions of
     OBJECT_TX_BYTES random bytes, no transaction drawn twice in the run."""
     seen: set = set()
     out = []
@@ -1442,7 +1473,7 @@ def object_contributions(rng, n: int, epochs: int) -> list:
         epoch = {}
         for nid in range(n):
             txs = []
-            while len(txs) < OBJECT_TXNS:
+            while len(txs) < txns:
                 tx = rng.getrandbits(8 * OBJECT_TX_BYTES).to_bytes(OBJECT_TX_BYTES, "big")
                 if tx not in seen:
                     seen.add(tx)
@@ -1636,6 +1667,330 @@ def phase_object(seed: int, card: str, device=None, shapes=OBJECT_SHAPES) -> dic
             log(f"{what} epoch {e} [{card}]: device seconds by kind "
                 f"{json.dumps(ep['device_seconds'])}; host seconds {json.dumps(ep['host_seconds'])}"
                 f" over calls {json.dumps(ep['host_calls'])}")
+    return res
+
+
+#: the dynamic phase's nets: SenderQueue ⊃ QueueingHoneyBadger ⊃
+#: DynamicHoneyBadger ⊃ HoneyBadger over VirtualNet (the round barrier),
+#: net seed DYNAMIC_SEED, proposals sampling up to DYNAMIC_BATCH queued
+#: transactions; each push gives every node OBJECT_TXNS transactions of
+#: OBJECT_TX_BYTES bytes
+DYNAMIC_SEED = 12
+DYNAMIC_BATCH = 100
+#: (N, f, churn): BASELINE config 1's shape with validator 3 voted out and
+#: back in, then a cut of configs 4 and 5 (N=100, N=256) in steady state
+#: (one batch commits every node's transactions)
+DYNAMIC_SHAPES = ((4, 1, True), (16, 5, False))
+#: the node the churn run votes out and back in
+DYNAMIC_CHURN_NODE = 3
+#: N of the array engine's era change under each DKG arm (f=0: the per-node
+#: arm's N²+N³ pairing-checked host decryptions, 0.7-0.8 s each on the card's
+#: host, cost 36 here against 80 at N=4)
+DYNAMIC_DKG_N = 3
+#: the DKG arms' counts that the reference's own check holds equal
+#: (tests/test_dkg_batch.py); the per-node arm bills no ciphertext checks
+#: or hashes (its SyncKeyGen objects decrypt on the host), as in the reference
+DKG_EQUAL_COUNTS = ("kg_parts_handled", "kg_acks_handled", "messages_delivered",
+                    "votes_verified")
+
+
+class DynamicSplit(HostSplit):
+    """HostSplit with the dynamic protocols' host crypto: SyncKeyGen's
+    encryptions of rows and values (``PublicKey.encrypt``) and its
+    decryptions, each with its ciphertext's pairing check
+    (``SecretKey.decrypt``), and DynamicHoneyBadger's signatures of votes
+    and key-generation messages (``SecretKey.sign``); their checks are the
+    backend's ``verify_signatures``."""
+
+    HOST = HostSplit.HOST + (("PublicKey", "encrypt", "kg_encrypt"),
+                             ("SecretKey", "decrypt", "kg_decrypt"),
+                             ("SecretKey", "sign", "dhb_sign"))
+
+
+def dhb_batch_digest(b, keys: dict) -> str:
+    """A backend-free digest of one DhbBatch: era, epoch, contributions and
+    change state, an added validator's key named by its owner (``keys``:
+    node -> its public key's bytes) since each backend's group has its own
+    key bytes."""
+    c = b.change.change
+    if c is None:
+        change = None
+    elif c.kind == "add":
+        change = ("add", c.node_id, "own key" if keys.get(c.node_id) == c.pub_key_bytes
+                  else c.pub_key_bytes.hex())
+    else:
+        change = c.to_canonical()
+    return hashlib.sha256(repr((b.era, b.epoch, sorted(b.contributions.items(), key=repr),
+                                b.change.kind, change)).encode()).hexdigest()
+
+
+def run_dynamic_net(backend, n: int, f: int, pushes: list, churn: bool, what: str) -> dict:
+    """SenderQueue ⊃ QueueingHoneyBadger over the port's VirtualNet:
+    ``NetBuilder(range(n)).num_faulty(f).defer_mode("round")
+    .backend(backend)``, built from DYNAMIC_SEED; inputs go in through
+    ``send_input`` and the net cranks round by round.  Stages:
+
+    * with ``churn``: push ``pushes[0]``, every node votes
+      DYNAMIC_CHURN_NODE out, crank until every correct node is in era 1;
+      the other nodes vote it back in with its own key, crank to era 2;
+      push ``pushes[1]`` and crank until every pushed transaction is in
+      every correct node's batches (the schedule of the reference's
+      ``test_churn_remove_then_readd``);
+    * without (steady state): each node's queue starts with all but the
+      last of its ``pushes[0]`` (the builder's ``queue``), the last is
+      pushed, and the net cranks until every one is committed: the
+      proposals of the first batch sample them all.
+
+    Raises unless the correct nodes' batches agree, every pushed
+    transaction is committed exactly once on each of them and (churn) the
+    node leaves at era 1 and is a validator again at era 2.  Per stage: its
+    seconds, deliveries, cranks, dispatches, device seconds by kind and the
+    host split (DynamicSplit); per batch the seconds to it."""
+    import torch
+
+    from hbbft_tpu_torch.net.virtual_net import NetBuilder
+    from hbbft_tpu_torch.protocols.change import Change
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import QueueingHoneyBadger
+    from hbbft_tpu_torch.protocols.sender_queue import SenderQueue
+    from hbbft_tpu_torch.protocols.transaction_queue import TransactionQueue
+
+    def sync():
+        if getattr(backend, "device", None) is not None and backend.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def queue(nid):
+        return TransactionQueue(() if churn else pushes[0][nid][:-1])
+
+    t = time.perf_counter()
+    net = (NetBuilder(range(n)).num_faulty(f).defer_mode("round").backend(backend)
+           .using(lambda ni, be, rng: SenderQueue(
+               QueueingHoneyBadger.builder(ni, be, rng).batch_size(DYNAMIC_BATCH)
+               .session_id(b"chip-smoke-dynamic").queue(queue(ni.our_id)).build()))
+           .build(seed=DYNAMIC_SEED))
+    correct = [node.id for node in net.correct_nodes()]
+    out = {"setup_seconds": time.perf_counter() - t,
+           "faulty": sorted(node.id for node in net.faulty_nodes()), "stages": [],
+           "batch_seconds": []}
+    pushed: list = [] if churn else [tx for nid in sorted(net.nodes)
+                                     for tx in pushes[0][nid][:-1]]
+    mark = [time.perf_counter(), 0]  # last batch's time, batches all correct nodes hold
+
+    def push(txs):
+        for nid in sorted(net.nodes):
+            for tx in txs[nid]:
+                net.send_input(nid, ("user", tx))
+                pushed.append(tx)
+
+    def vote(change, voters):
+        for nid in voters:
+            net.send_input(nid, ("change", change))
+
+    def committed(nid) -> collections.Counter:
+        seen: collections.Counter = collections.Counter()
+        for b in net.nodes[nid].outputs:
+            for txs in b.contributions.values():
+                if isinstance(txs, list):
+                    seen.update(txs)
+        return seen
+
+    def all_committed() -> bool:
+        want = set(pushed)
+        return all(want <= set(committed(nid)) for nid in correct)
+
+    def eras_at_least(era):
+        return lambda: all(net.nodes[nid].algorithm.dhb.era >= era for nid in correct)
+
+    def stage(name, act, done):
+        c0 = backend.counters.snapshot()
+        split = DynamicSplit(backend)
+        t0 = time.perf_counter()
+        with split:
+            act()
+            while not done():
+                if not (net.queue or net._pending_work):
+                    raise AssertionError(f"{what}: the net went quiet in stage {name}")
+                net.crank_round()
+                held = min(len(net.nodes[nid].outputs) for nid in correct)
+                if held > mark[1]:
+                    sync()
+                    now = time.perf_counter()
+                    out["batch_seconds"].append((now - mark[0]) / (held - mark[1]))
+                    mark[:] = [now, held]
+            sync()
+        secs = time.perf_counter() - t0
+        c1 = backend.counters.snapshot()
+        out["stages"].append({
+            "stage": name, "seconds": secs, "batches": mark[1],
+            "messages_delivered": net.messages_delivered, "cranks": net.cranks,
+            "eras": [net.nodes[nid].algorithm.dhb.era for nid in sorted(net.nodes)],
+            "device_dispatches": c1["device_dispatches"] - c0["device_dispatches"],
+            "device_seconds": _counter_delta(c0, c1, "device_seconds_"),
+            "host_seconds": split.split(secs),
+            "host_calls": {k: v for k, v in split.calls.items() if v},
+        })
+
+    node = DYNAMIC_CHURN_NODE
+    if churn:
+        pk = net.nodes[node].algorithm.netinfo.public_key(node)
+        stage("vote out", lambda: (push(pushes[0]), vote(Change.remove(node), sorted(net.nodes))),
+              eras_at_least(1))
+        if any(net.nodes[nid].algorithm.netinfo.is_node_validator(node) for nid in correct):
+            raise AssertionError(f"{what}: node {node} is still a validator in era 1")
+        stage("vote in", lambda: vote(Change.add(node, pk.to_bytes()),
+                                      [i for i in sorted(net.nodes) if i != node]),
+              eras_at_least(2))
+        stage("commit", lambda: push(pushes[1]), all_committed)
+        rejoined = net.nodes[node].algorithm
+        if not (rejoined.netinfo.is_validator() and rejoined.dhb.era == 2 and all(
+                net.nodes[nid].algorithm.netinfo.is_node_validator(node) for nid in correct)):
+            raise AssertionError(f"{what}: node {node} is not a validator again in era 2")
+    else:
+        stage("steady", lambda: push({nid: txs[-1:] for nid, txs in pushes[0].items()}),
+              all_committed)
+
+    keys = {nid: net.nodes[nid].algorithm.netinfo.secret_key.public_key().to_bytes()
+            for nid in net.nodes}
+    digests = {nid: [dhb_batch_digest(b, keys) for b in net.nodes[nid].outputs]
+               for nid in correct}
+    common = min(len(d) for d in digests.values())
+    if any(d[:common] != digests[correct[0]][:common] for d in digests.values()):
+        raise AssertionError(f"{what}: the correct nodes output different batches")
+    for nid in correct:
+        seen = committed(nid)
+        if set(seen) != set(pushed) or any(seen[tx] != 1 for tx in pushed):
+            raise AssertionError(f"{what}: node {nid} did not commit every transaction once")
+    first = net.nodes[correct[0]].outputs
+    out["batches"] = [{"era": b.era, "epoch": b.epoch, "change": b.change.kind,
+                       "proposers": sorted(b.contributions),
+                       "transactions": sum(len(v) for v in b.contributions.values()
+                                           if isinstance(v, list))} for b in first]
+    out["era_changes"] = [(i, b.era) for i, b in enumerate(first) if b.change.kind == "complete"]
+    out["digests"] = digests
+    out["messages_delivered"], out["cranks"] = net.messages_delivered, net.cranks
+    c = backend.counters.snapshot()
+    out["counters"] = {k: c[k] for k in OBJECT_COUNTS}
+    out["device_dispatches"] = c["device_dispatches"]
+    return out
+
+
+def dkg_arms(seed: int, card: str, make_backend, n: int = DYNAMIC_DKG_N) -> dict:
+    """The array engine's era change at N=n, ``dynamic=True``, under
+    ``HBBFT_TPU_DKG=pernode`` (the per-node SyncKeyGen objects) and then
+    ``batched`` from the same seed, each on ``make_backend()``, each
+    followed by one epoch under the new keys.  Raises unless the two arms
+    agree on DKG_EQUAL_COUNTS, the per-node arm bills N² parts and N³ acks,
+    both give a new master key and their next epoch's Batch holds every
+    contribution on every node."""
+    import torch
+
+    from hbbft_tpu_torch.engine.array_engine import ArrayHoneyBadgerNet
+
+    saved = os.environ.get("HBBFT_TPU_DKG")
+    arms = {}
+    try:
+        for mode in ("pernode", "batched"):
+            os.environ["HBBFT_TPU_DKG"] = mode
+            backend = make_backend()
+            on_card = getattr(backend, "device", None) is not None and backend.device.type == "cuda"
+            net = ArrayHoneyBadgerNet(range(n), backend=backend, seed=seed, dynamic=True)
+            master0 = net.pk_master
+            c0 = backend.counters.snapshot()
+            t = time.perf_counter()
+            with DynamicSplit(backend) as split:
+                rep = net.era_change()
+                if on_card:
+                    torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            c1 = backend.counters.snapshot()
+            if net.era != 1 or net.pk_master == master0:
+                raise AssertionError(f"DKG arm {mode}: no era turnover")
+            contribs = draw_contributions(net)
+            t = time.perf_counter()
+            batches = net.run_epoch(contribs)
+            if on_card:
+                torch.cuda.synchronize()
+            check_batches(batches, net.ids, contribs, f"DKG arm {mode}, the epoch after")
+            arms[mode] = {
+                "seconds": secs, "epoch_seconds": time.perf_counter() - t,
+                "counts": {k: v for k, v in dataclasses.asdict(rep).items() if k != "phase_seconds"},
+                "device_dispatches": c1["device_dispatches"] - c0["device_dispatches"],
+                "device_seconds": _counter_delta(c0, c1, "device_seconds_"),
+                "host_seconds": split.split(secs),
+                "host_calls": {k: v for k, v in split.calls.items() if v},
+            }
+    finally:
+        if saved is None:
+            os.environ.pop("HBBFT_TPU_DKG", None)
+        else:
+            os.environ["HBBFT_TPU_DKG"] = saved
+    per, bat = arms["pernode"]["counts"], arms["batched"]["counts"]
+    for k in DKG_EQUAL_COUNTS:
+        if per[k] != bat[k]:
+            raise AssertionError(f"DKG arms: {k} {per[k]} per node, {bat[k]} batched")
+    if (per["kg_parts_handled"], per["kg_acks_handled"]) != (n * n, n ** 3):
+        raise AssertionError(f"DKG arms: the per-node arm handled {per}")
+    for mode, arm in arms.items():
+        log(f"DKG arm {mode}, N={n} [{card}]: era change {arm['seconds']:.3f} s, the epoch "
+            f"after {arm['epoch_seconds']:.3f} s; counts {json.dumps(arm['counts'])}; "
+            f"device_dispatches {arm['device_dispatches']}; device seconds "
+            f"{json.dumps(arm['device_seconds'])}; host seconds "
+            f"{json.dumps(arm['host_seconds'])} over calls {json.dumps(arm['host_calls'])}")
+    return arms
+
+
+def phase_dynamic(seed: int, card: str, device=None, shapes=DYNAMIC_SHAPES,
+                  dkg_backend=None, txns: int = OBJECT_TXNS) -> dict:
+    """The dynamic protocols' main path: SenderQueue ⊃ QueueingHoneyBadger
+    over the port's VirtualNet (run_dynamic_net) on ``TorchBackend(device)``
+    at each of ``shapes``, held against the same net on the port's
+    ``MockBackend`` (the same seed and transactions): the same batches on
+    every correct node, the same deliveries and cranks stage for stage, the
+    same era changes and work counts, the same host crypto calls; then the
+    array engine's two DKG arms (dkg_arms) on ``TorchBackend(device)``, or
+    on ``dkg_backend()`` when given.  Each push gives a node ``txns``
+    transactions."""
+    from hbbft_tpu_torch.crypto.backend import MockBackend
+    from hbbft_tpu_torch.ops.backend import TorchBackend
+
+    rng = random.Random(seed)
+    res: dict = {"shapes": []}
+    for n, f, churn in shapes:
+        pushes = object_contributions(rng, n, 2 if churn else 1, txns)
+        what = f"dynamic N={n}, f={f}" + (", churn" if churn else "")
+        real = run_dynamic_net(TorchBackend(device), n, f, pushes, churn, what)
+        mock = run_dynamic_net(MockBackend(), n, f, pushes, churn, what + " (mock)")
+        for key in ("faulty", "digests", "batches", "era_changes", "messages_delivered",
+                    "cranks", "counters"):
+            if real[key] != mock[key]:
+                raise AssertionError(
+                    f"{what}: {key} differs between TorchBackend and MockBackend (batches "
+                    f"{real['batches']} against {mock['batches']}; deliveries per stage "
+                    f"{[s['messages_delivered'] for s in real['stages']]} against "
+                    f"{[s['messages_delivered'] for s in mock['stages']]})")
+        for a, b in zip(real["stages"], mock["stages"], strict=True):
+            for key in ("messages_delivered", "cranks", "eras", "batches", "host_calls"):
+                if a[key] != b[key]:
+                    raise AssertionError(f"{what}, stage {a['stage']}: {key} {a[key]} on "
+                                         f"TorchBackend, {b[key]} on MockBackend")
+        res["shapes"].append({"n": n, "f": f, "churn": churn, "torch": real, "mock": mock})
+        st = real["stages"]
+        log(f"{what} [{card}]: TorchBackend equals MockBackend batch for batch "
+            f"({len(real['batches'])} batches, eras {[b['era'] for b in real['batches']]}, "
+            f"proposers {[len(b['proposers']) for b in real['batches']]}, transactions "
+            f"{[b['transactions'] for b in real['batches']]}, era changes at batches "
+            f"{real['era_changes']}, faulty {real['faulty']}); stages "
+            f"{[s['stage'] for s in st]}: messages_delivered "
+            f"{[s['messages_delivered'] for s in st]}, cranks {[s['cranks'] for s in st]}; "
+            f"counts {json.dumps(real['counters'])}; every pushed transaction committed once")
+        log(f"{what} [{card}]: seconds per stage {json.dumps([s['seconds'] for s in st])} "
+            f"(MockBackend {json.dumps([s['seconds'] for s in mock['stages']])}); seconds per "
+            f"batch {json.dumps(real['batch_seconds'])}; device_dispatches per stage "
+            f"{json.dumps([s['device_dispatches'] for s in st])}")
+        for s in st:
+            log(f"{what} stage {s['stage']} [{card}]: device seconds by kind "
+                f"{json.dumps(s['device_seconds'])}; host seconds "
+                f"{json.dumps(s['host_seconds'])} over calls {json.dumps(s['host_calls'])}")
+    res["dkg"] = dkg_arms(seed, card, dkg_backend or (lambda: TorchBackend(device)))
     return res
 
 
@@ -2029,6 +2384,15 @@ def run_era(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
     return era_res
 
 
+def widest_launches() -> dict:
+    """The widest launch of each epoch kernel since the last reset."""
+    from hbbft_tpu_torch.ops import fq_rns_cuda as K, tower_fused_cuda as TK
+
+    return {"fq_rns_mul": K.mul.widest, "fq_rns_pow": K.pow_fixed.widest,
+            "miller_dbl": TK.miller_dbl.widest, "hard_exp": TK.hard_exp.widest,
+            "tower_op": TK.tower_op.widest}
+
+
 def run_object(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
     """The object runtime's phase on the card with the kernel launch counts
     zeroed just before it and read just after (its five epoch kernels must
@@ -2036,7 +2400,7 @@ def run_object(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
     phase's mean and widest launch widths."""
     import torch
 
-    from hbbft_tpu_torch.ops import fq_rns_cuda as K, tower_fused_cuda as TK
+    from hbbft_tpu_torch.ops import fq_rns_cuda as K
 
     reset_launches()
     t = time.perf_counter()
@@ -2046,9 +2410,7 @@ def run_object(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
     res["all_launches"] = _launch_counts(kernel_fns())
     res["launches"], res["lanes"] = read_launches(
         "the object runtime (HoneyBadger over VirtualNet)", EPOCH_KERNELS)
-    res["widest"] = {"fq_rns_mul": K.mul.widest, "fq_rns_pow": K.pow_fixed.widest,
-                     "miller_dbl": TK.miller_dbl.widest, "hard_exp": TK.hard_exp.widest,
-                     "tower_op": TK.tower_op.widest}
+    res["widest"] = widest_launches()
     res["launch_widths_log2"] = {"fq_rns_mul": dict(sorted(K.mul.widths.items()))}
     log(f"object runtime [{card}]: widest launches {json.dumps(res['widest'])}; fq_rns_mul "
         f"launch widths (key b: [2^(b-1), 2^b) lanes -> launches) "
@@ -2059,6 +2421,51 @@ def run_object(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
         names=tuple(res["widest"]))
     secs["object_checks"] = time.perf_counter() - t
     return res
+
+
+def run_dynamic(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
+    """The dynamic protocols' phase on the card with the kernel launch
+    counts zeroed just before it and read just after (its five epoch
+    kernels must have launched), then each of the five against its plain
+    version at the phase's mean and widest launch widths."""
+    import torch
+
+    from hbbft_tpu_torch.ops import fq_rns_cuda as K
+
+    reset_launches()
+    t = time.perf_counter()
+    res = phase_dynamic(args.seed + 6, card)
+    torch.cuda.synchronize()
+    secs["dynamic_phase"] = time.perf_counter() - t
+    res["all_launches"] = _launch_counts(kernel_fns())
+    res["launches"], res["lanes"] = read_launches(
+        "the dynamic protocols (SenderQueue ⊃ QueueingHoneyBadger over VirtualNet, churn, "
+        "the two DKG arms)", EPOCH_KERNELS)
+    res["widest"] = widest_launches()
+    res["launch_widths_log2"] = {"fq_rns_mul": dict(sorted(K.mul.widths.items()))}
+    log(f"dynamic protocols [{card}]: widest launches {json.dumps(res['widest'])}; fq_rns_mul "
+        f"launch widths (key b: [2^(b-1), 2^b) lanes -> launches) "
+        f"{json.dumps(res['launch_widths_log2']['fq_rns_mul'])}")
+    t = time.perf_counter()
+    res["checked_widths"] = check_path_widths(
+        dev, rng, errs, res["launches"], res["lanes"], res["widest"], "dynamic protocols",
+        names=tuple(res["widest"]))
+    secs["dynamic_checks"] = time.perf_counter() - t
+    return res
+
+
+def log_dynamic(res: dict, card: str) -> None:
+    for sh in res["shapes"]:
+        st = sh["torch"]["stages"]
+        log(f"dynamic N={sh['n']}, f={sh['f']}{', churn' if sh['churn'] else ''} [{card}]: "
+            f"seconds per stage {json.dumps({s['stage']: s['seconds'] for s in st})}, seconds "
+            f"per batch {json.dumps(sh['torch']['batch_seconds'])}, device_dispatches per stage "
+            f"{json.dumps([s['device_dispatches'] for s in st])}, counts "
+            f"{json.dumps(sh['torch']['counters'])}")
+    log(f"DKG arms N={DYNAMIC_DKG_N} [{card}]: era change seconds "
+        f"{json.dumps({m: a['seconds'] for m, a in res['dkg'].items()})}")
+    log(f"dynamic protocols launches [{card}]: {json.dumps(res['launches'])}; lanes "
+        f"{json.dumps(res['lanes'])}; widest {json.dumps(res['widest'])}")
 
 
 def log_object(res: dict, card: str) -> None:
@@ -2094,6 +2501,9 @@ def main(argv=None) -> int:
                       help="build the kernels, then run the era phase and its checks alone")
     only.add_argument("--object-only", action="store_true",
                       help="build the kernels, then run the object runtime's phase and its "
+                           "checks alone")
+    only.add_argument("--dynamic-only", action="store_true",
+                      help="build the kernels, then run the dynamic protocols' phase and its "
                            "checks alone")
     # the limb arm's child process (phase_limb_arm starts it)
     ap.add_argument("--limb-arm", nargs=2, metavar=("IN", "OUT"), help=argparse.SUPPRESS)
@@ -2142,7 +2552,8 @@ def main(argv=None) -> int:
         result["build"] = kernel_bench.build_report(dev, log, sources)
         alone = [(name, run, log_fn) for flag, name, run, log_fn in (
             (args.era_only, "era", run_era, log_era),
-            (args.object_only, "object_runtime", run_object, log_object)) if flag]
+            (args.object_only, "object_runtime", run_object, log_object),
+            (args.dynamic_only, "dynamic", run_dynamic, log_dynamic)) if flag]
         if alone:  # one phase and its checks, after the build
             (name, run, log_fn), = alone
             res = run(args, dev, rng, {"fq_rns_mul": 0.0, "fq_rns_pow": 0.0}, card, secs)
@@ -2247,6 +2658,7 @@ def main(argv=None) -> int:
         peaks.append(torch.cuda.max_memory_allocated(dev))
         era_res = run_era(args, dev, rng, errs, card, secs)
         object_res = run_object(args, dev, rng, errs, card, secs)
+        dynamic_res = run_dynamic(args, dev, rng, errs, card, secs)
 
         reset_launches()
         t = time.perf_counter()
@@ -2271,6 +2683,11 @@ def main(argv=None) -> int:
                 r["object_mean_lanes"] = (object_res["lanes"][r["name"]]
                                           / object_res["launches"][r["name"]])
                 r["object_widest_lanes"] = object_res["widest"][r["name"]]
+            r["dynamic_launches"] = dynamic_res["all_launches"][r["name"]]
+            if r["name"] in dynamic_res["widest"]:
+                r["dynamic_mean_lanes"] = (dynamic_res["lanes"][r["name"]]
+                                           / dynamic_res["launches"][r["name"]])
+                r["dynamic_widest_lanes"] = dynamic_res["widest"][r["name"]]
         secs["timing"] = time.perf_counter() - t
         prof = None
         if args.profile:
@@ -2288,7 +2705,7 @@ def main(argv=None) -> int:
         "n": N, "f": (N - 1) // 3, "path": path_res, "path_launches": path_launches,
         "stacked_arm": stacked_res, "limb_arm": limb_res, "sig_path": sig_res,
         "epoch": epoch_res, "rs_kill_switch": kill_res, "coin_epoch": coin_res, "era": era_res,
-        "object_runtime": object_res,
+        "object_runtime": object_res, "dynamic": dynamic_res,
         "bench": bench_res, "phase_seconds": secs,
         "path_device_dispatches": c.device_dispatches, "path_pairing_checks": c.pairing_checks,
         "path_rlc_groups": c.rlc_groups, "kernels": rows, "launch_widths_log2": widths,
@@ -2318,6 +2735,7 @@ def main(argv=None) -> int:
         f"lanes {json.dumps(coin_lanes)}, peak memory {coin_res['peak_memory_bytes']} bytes")
     log_era(era_res, card)
     log_object(object_res, card)
+    log_dynamic(dynamic_res, card)
     log(f"phase seconds [{card}]: {json.dumps(secs)}")
     log(f"path device_dispatches={c.device_dispatches} pairing_checks={c.pairing_checks} "
         f"rlc_groups={c.rlc_groups} peak_memory_bytes={result['peak_memory_bytes']} [{card}]")

@@ -23,6 +23,7 @@ Conventions (matching the reference's crate):
 from __future__ import annotations
 
 import hashlib
+import weakref
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 from hbbft_tpu_torch.crypto.group import Group
@@ -271,6 +272,11 @@ class PublicKeyShare(PublicKey):
         return g.pairing_eq(share.el, ct.hash_point(), self.el, ct.w)
 
 
+#: id(PublicKeySet) -> {i: the point of share i}; an entry leaves with its
+#: key set.  A key set is immutable: its commitment is never changed in place.
+_SHARE_POINTS: Dict[int, Dict[int, Any]] = {}
+
+
 class PublicKeySet:
     """Master public key: a G1 commitment to the secret polynomial."""
 
@@ -286,7 +292,18 @@ class PublicKeySet:
         return PublicKey(self.G, self.commitment.evaluate(0))
 
     def public_key_share(self, i: int) -> PublicKeyShare:
-        return PublicKeyShare(self.G, self.commitment.evaluate(i + 1))
+        """Share i, its point evaluated once per key set: the protocols ask
+        for the sender's share at every share they verify (26,315 times an
+        N=32 epoch, each a host polynomial evaluation in G1).  The points
+        are kept beside the key set, not on it, so its snapshot encoding
+        does not change, and each call returns a fresh share object."""
+        points = _SHARE_POINTS.get(id(self))
+        if points is None:
+            points = _SHARE_POINTS[id(self)] = {}
+            weakref.finalize(self, _SHARE_POINTS.pop, id(self), None)
+        if i not in points:
+            points[i] = self.commitment.evaluate(i + 1)
+        return PublicKeyShare(self.G, points[i])
 
     def encrypt(self, msg: bytes, rng) -> Ciphertext:
         return Ciphertext.encrypt(self.G, self.commitment.evaluate(0), msg, rng)

@@ -46,9 +46,9 @@ turnover (signed votes → the batched DKG of engine/dkg_batch.py → new
 keys, ``era += 1``), and ``run_epochs(k, churn_at=[...])`` fires one
 before each listed epoch.  ``checkpoint()``/``restore()`` snapshot the
 whole engine through utils/snapshot.py (the backend is re-attached).
-The reference's per-node SyncKeyGen arm (``HBBFT_TPU_DKG`` other than
-``batched``) raises ``NotImplementedError``: protocols/sync_key_gen.py
-is not ported.
+``HBBFT_TPU_DKG`` other than ``batched`` runs the era change's key
+generation on the per-node ``SyncKeyGen`` objects instead, the
+reference's golden cross-check arm.
 """
 
 from __future__ import annotations
@@ -66,6 +66,7 @@ from hbbft_tpu_torch.crypto.merkle import MerkleTree, PackedProofs, _depth, vali
 from hbbft_tpu_torch.engine.dkg_batch import batched_encrypt, batched_era_dkg
 from hbbft_tpu_torch.ops.pipeline import device_rs_enabled, hostpipe_enabled
 from hbbft_tpu_torch.protocols.honey_badger import Batch
+from hbbft_tpu_torch.protocols.sync_key_gen import SyncKeyGen
 from hbbft_tpu_torch.utils import canonical
 from hbbft_tpu_torch.utils.metrics import Counters
 
@@ -720,8 +721,9 @@ class ArrayHoneyBadgerNet:
            prove consensus still holds under the new keys.
 
         ``HBBFT_TPU_DKG`` (read per call) other than ``batched`` selects
-        the reference's per-node SyncKeyGen arm, which raises here:
-        protocols/sync_key_gen.py waits for a later port slice.
+        the per-node arm: the lockstep ``SyncKeyGen`` objects of
+        protocols/sync_key_gen.py, the golden cross-check of the batched
+        DKG (the same workload counts; O(N³) sequential host crypto).
 
         Returns the work report (also appended to ``churn_reports``).
         """
@@ -729,16 +731,10 @@ class ArrayHoneyBadgerNet:
             return self._era_change()
 
     def _era_change(self) -> EpochReport:
-        dkg_mode = os.environ.get("HBBFT_TPU_DKG", "batched")
-        if dkg_mode != "batched":
-            raise NotImplementedError(
-                f"HBBFT_TPU_DKG={dkg_mode} selects the per-node SyncKeyGen arm, "
-                "which needs protocols/sync_key_gen.py: not ported yet (a later "
-                "port slice; ROADMAP queue 1)"
-            )
         n, f = self.n, self.f
         rep = EpochReport(epoch=self.epoch)
         bk = self.backend.buckets
+        g = self.backend.group
 
         # 1) signed votes, batch-verified per receiver (ride inside one
         # epoch's contributions, so no extra message rounds).
@@ -762,31 +758,68 @@ class ArrayHoneyBadgerNet:
         rep.votes_verified += len(vote_items)
 
         # 2) the key generation among all N (lockstep Part then Ack
-        # phases), device-batched ladders, batched pairing checks and
-        # RLC-aggregated commitment checks.
-        self._count_msgs(rep, n * (n - 1))  # Part: Target.All
-        self._count_msgs(rep, n * n * (n - 1))  # Ack: Target.All
-        with bk.region("dispatch"):
-            first, shares, kstats = batched_era_dkg(
-                self.backend,
-                self.ids,
-                {nid: self.netinfos[nid].secret_key.x for nid in self.ids},
-                {nid: pub_keys[nid].el for nid in self.ids},
-                f,
-                self.rng,
-            )
-        rep.kg_parts_handled += kstats.parts_handled
-        rep.kg_acks_handled += kstats.acks_handled
-        rep.ciphertexts_verified += kstats.ciphertexts_verified
-        rep.hashes += kstats.hashes_g2
-        rep.rounds += 2
+        # phases).  Two arms of the same protocol math:
+        #   batched (default): engine/dkg_batch.py, device-batched ladders,
+        #     batched pairing checks and RLC-aggregated commitment checks;
+        #   pernode: the lockstep SyncKeyGen objects, O(N³) sequential host
+        #     crypto, kept as the golden cross-check (HBBFT_TPU_DKG=pernode).
+        dkg_mode = os.environ.get("HBBFT_TPU_DKG", "batched")
+        if dkg_mode == "batched":
+            self._count_msgs(rep, n * (n - 1))  # Part: Target.All
+            self._count_msgs(rep, n * n * (n - 1))  # Ack: Target.All
+            with bk.region("dispatch"):
+                first, shares, kstats = batched_era_dkg(
+                    self.backend,
+                    self.ids,
+                    {nid: self.netinfos[nid].secret_key.x for nid in self.ids},
+                    {nid: pub_keys[nid].el for nid in self.ids},
+                    f,
+                    self.rng,
+                )
+            rep.kg_parts_handled += kstats.parts_handled
+            rep.kg_acks_handled += kstats.acks_handled
+            rep.ciphertexts_verified += kstats.ciphertexts_verified
+            rep.hashes += kstats.hashes_g2
+            rep.rounds += 2
+            results = {nid: (first, shares[nid]) for nid in self.ids}
+        else:
+            kgs: Dict[Any, SyncKeyGen] = {}
+            parts = {}
+            for nid in self.ids:
+                kg, part = SyncKeyGen.new(
+                    nid, self.netinfos[nid].secret_key, pub_keys, f, self.rng, g
+                )
+                kgs[nid] = kg
+                parts[nid] = part
+            self._count_msgs(rep, n * (n - 1))  # Part: Target.All
+            acks = []
+            for proposer in self.ids:
+                for nid in self.ids:
+                    out = kgs[nid].handle_part(proposer, parts[proposer], self.rng)
+                    _require(out.fault is None, str(out.fault))
+                    if out.ack is not None:
+                        acks.append((nid, out.ack))
+                    rep.kg_parts_handled += 1
+            self._count_msgs(rep, n * n * (n - 1))  # Ack: Target.All per part
+            for acker, ack in acks:
+                for nid in self.ids:
+                    out = kgs[nid].handle_ack(acker, ack)
+                    _require(out.fault is None, str(out.fault))
+                    rep.kg_acks_handled += 1
+            rep.rounds += 2
+            results = {nid: kgs[nid].generate() for nid in self.ids}
 
-        # 3) era turnover: every node takes the one derived key set.
+        # 3) era turnover: everyone must derive the same key set.
+        first = results[self.ids[0]][0]
+        _require(
+            all(results[nid][0] == first for nid in self.ids),
+            "array engine: DKG public key set disagreement",
+        )
         secret_keys = {nid: self.netinfos[nid].secret_key for nid in self.ids}
         self.netinfos = {
             nid: NetworkInfo(
                 our_id=nid,
-                secret_key_share=shares[nid],
+                secret_key_share=results[nid][1],
                 public_key_set=first,
                 secret_key=secret_keys[nid],
                 public_keys=pub_keys,

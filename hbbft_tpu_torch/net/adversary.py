@@ -154,22 +154,20 @@ def locate_inner(
     Returns ``(inner, rebuild)`` where ``rebuild(new_inner)`` produces the
     whole payload with only the matched message replaced, or
     ``(None, None)`` when nothing matches — the caller passes the message
-    through untouched (tamper hooks never raise on unknown shapes).
-
-    The port has the HB, Subset and BA envelopes; the reference's DHB and
-    SenderQueue arms (``DhbMessage``, ``SqMessage`` with kind ``"algo"``)
-    come with those protocols.  No message of either class exists here
-    before then, so every payload is classified as the reference's is."""
+    through untouched (tamper hooks never raise on unknown shapes)."""
     from hbbft_tpu_torch.protocols.binary_agreement import BaMessage
+    from hbbft_tpu_torch.protocols.dynamic_honey_badger import DhbMessage
     from hbbft_tpu_torch.protocols.honey_badger import HbMessage
+    from hbbft_tpu_torch.protocols.sender_queue import SqMessage
     from hbbft_tpu_torch.protocols.subset import SubsetMessage
 
     if match(payload):
         return payload, lambda m: m
     descend = (
-        isinstance(payload, SubsetMessage)
+        isinstance(payload, (DhbMessage, SubsetMessage))
         or (isinstance(payload, HbMessage) and payload.kind in ("subset", "dec_share"))
         or (isinstance(payload, BaMessage) and payload.kind == "coin")
+        or (isinstance(payload, SqMessage) and payload.kind == "algo")
     )
     if descend:
         inner, rebuild = locate_inner(payload.payload, match)

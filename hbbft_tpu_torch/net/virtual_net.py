@@ -592,7 +592,7 @@ class NetBuilder:
             raise NotImplementedError(
                 "crash schedules need net/crash.py and the object-level "
                 "save_node/load_node, which the port does not have yet "
-                "(ROADMAP queue 1, item 2)"
+                "(ROADMAP queue 1, item 1)"
             )
         return self
 

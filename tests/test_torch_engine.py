@@ -11,7 +11,7 @@ every count field of every ``EpochReport`` equal, the coin's included.
 The coin round is a superset of the engine's default epoch (its other
 rounds are the same code), so the default rides along.  A run under
 ``HBBFT_TPU_NO_HOSTPIPE=1`` must give the same Batches and dispatches,
-and the per-node DKG arm the port does not carry yet must raise.
+and the per-node DKG arm must equal the reference's.
 """
 
 import hashlib
@@ -132,17 +132,38 @@ def test_no_hostpipe_gives_the_same_batches(runs):
     assert net.backend.counters.device_seconds_merkle == 0
 
 
-def test_unported_options_raise(runs, monkeypatch):
-    """The era machinery is ported (tests/test_torch_era.py); the
-    reference's per-node SyncKeyGen arm is not, and its switch raises
-    before any work instead of being ignored."""
-    net = runs["net"]
-    epoch, era = net.epoch, net.era
-    for mode in ("pernode", "anything-but-batched"):
+def test_unported_options_raise(monkeypatch):
+    """(The name is from when these two options raised; it is kept so that
+    the case stays the same case.)  The per-node SyncKeyGen arm of the era
+    change is ported: every
+    ``HBBFT_TPU_DKG`` other than ``batched`` takes it, as in the reference.
+    At N=5 on each package's ``MockBackend`` (the shape of
+    tests/test_dkg_batch.py), the port's arm equals the reference's in every
+    count field and in the new master key, equals the port's batched arm in
+    the counts that tests/test_dkg_batch.py compares, and both key sets run
+    a post-turnover epoch."""
+    from hbbft_tpu.crypto.backend import MockBackend as RefMock
+    from hbbft_tpu_torch.crypto.backend import MockBackend as PortMock
+
+    def era_change(net_cls, backend, mode):
         monkeypatch.setenv("HBBFT_TPU_DKG", mode)
-        with pytest.raises(NotImplementedError, match="sync_key_gen"):
-            net.era_change()
-    assert (net.epoch, net.era, net.churn_reports) == (epoch, era, [])
+        net = net_cls(range(5), backend=backend, seed=7, dynamic=True)
+        net.run_epochs(1, payload_size=32)
+        rep = net.era_change()
+        net.run_epochs(1, payload_size=32)
+        assert net.era == 1
+        counts = {k: v for k, v in asdict(rep).items() if k != "phase_seconds"}
+        return counts, net.pk_master.to_bytes()
+
+    monkeypatch.delenv("HBBFT_TPU_DKG", raising=False)
+    batched, batched_pk = era_change(ArrayHoneyBadgerNet, PortMock(), "batched")
+    for mode in ("pernode", "anything-but-batched"):
+        ref, ref_pk = era_change(RefNet, RefMock(), mode)
+        port, port_pk = era_change(ArrayHoneyBadgerNet, PortMock(), mode)
+        assert (port, port_pk) == (ref, ref_pk)
+        for k in ("kg_parts_handled", "kg_acks_handled", "messages_delivered"):
+            assert port[k] == batched[k], k
+        assert port["kg_acks_handled"] == 5**3 and port_pk != batched_pk
 
 
 def test_batched_encryption_ladders_equal_the_host(runs):

@@ -38,6 +38,17 @@ class Pkg:
         self.bc = imp("protocols.broadcast")
         self.ss = imp("protocols.subset")
         self.hb = imp("protocols.honey_badger")
+        self.types = imp("core.types")
+        self.change = imp("protocols.change")
+        self.votes = imp("protocols.votes")
+        self.skg = imp("protocols.sync_key_gen")
+        self.dhb = imp("protocols.dynamic_honey_badger")
+        self.txq = imp("protocols.transaction_queue")
+        self.qhb = imp("protocols.queueing_honey_badger")
+        self.sq = imp("protocols.sender_queue")
+        self.wire = imp("utils.wire")
+        self.gen = imp("net.generators")
+        self.tn = imp("net.test_network")
         self.backend = imp("crypto.backend")
         self.keys = imp("crypto.keys")
         self.merkle = imp("crypto.merkle")
@@ -59,6 +70,10 @@ def norm(o):
     name = type(o).__name__
     if name == "Batch":
         return ("Batch", o.epoch, o.contributions)
+    if name == "DhbBatch":
+        c = o.change
+        return (name, o.era, o.epoch, o.contributions,
+                (c.kind, c.change.to_canonical() if c.change is not None else None))
     if name == "SubsetOutput":
         return (name, o.kind, o.proposer, o.value)
     if hasattr(o, "to_bytes"):

@@ -269,3 +269,62 @@ def test_object_contributions_are_distinct(smoke):
     flat = [tx for ep in txs for node in ep.values() for tx in node]
     assert len(txs) == 10 and all(len(node) == 25 for ep in txs for node in ep.values())
     assert len(set(flat)) == len(flat) == 1000 and {len(tx) for tx in flat} == {10}
+
+
+def test_dynamic_phase_at_a_tiny_size(smoke, capsys):
+    """The dynamic phase without the churn votes at N=4, f=1, one
+    transaction a node (one batch), on ``TorchBackend(device="cpu")`` (the
+    kernels' plain versions): SenderQueue ⊃ QueueingHoneyBadger over
+    VirtualNet gives the port's MockBackend run's batch, deliveries, cranks,
+    work counts and host crypto calls; then the array engine's per-node and
+    batched DKG arms on MockBackend agree in their DKG counts.  The timed
+    functions are restored after."""
+    from hbbft_tpu_torch.crypto.backend import MockBackend
+    from hbbft_tpu_torch.crypto.keys import PublicKey, SecretKey
+
+    timed = (PublicKey.encrypt, SecretKey.decrypt, SecretKey.sign)
+    res = smoke.phase_dynamic(7, "cpu", device="cpu", shapes=((4, 1, False),),
+                              dkg_backend=MockBackend, txns=1)
+    assert timed == (PublicKey.encrypt, SecretKey.decrypt, SecretKey.sign)
+    (sh,) = res["shapes"]
+    real, mock = sh["torch"], sh["mock"]
+    assert real["batches"] == mock["batches"] and len(real["batches"]) == 1
+    (batch,) = real["batches"]
+    assert (batch["era"], batch["change"], batch["transactions"]) == (0, "none", 4)
+    assert real["digests"] == mock["digests"] and real["faulty"] == mock["faulty"]
+    (st,), (mst,) = real["stages"], mock["stages"]
+    assert (st["messages_delivered"], st["cranks"]) == (mst["messages_delivered"], mst["cranks"])
+    # the batch's four proposals and the next epoch's, in flight when it lands
+    assert st["host_calls"] == mst["host_calls"] and st["host_calls"]["encrypt"] == 8
+    assert real["counters"] == mock["counters"] and real["counters"]["ciphertexts_verified"] == 16
+    assert st["device_dispatches"] > 0 and mst["device_dispatches"] == 0
+    assert st["host_seconds"]["rest"] >= 0 and len(real["batch_seconds"]) == 1
+    per, bat = res["dkg"]["pernode"]["counts"], res["dkg"]["batched"]["counts"]
+    n = smoke.DYNAMIC_DKG_N  # the card's N: N² parts, N³ acks
+    assert (per["kg_parts_handled"], per["kg_acks_handled"]) == (n * n, n ** 3)
+    assert all(per[k] == bat[k] for k in smoke.DKG_EQUAL_COUNTS)
+    assert (per["ciphertexts_verified"], bat["ciphertexts_verified"]) == (0, n * n + n ** 3)
+    out = capsys.readouterr().out
+    assert "TorchBackend equals MockBackend batch for batch" in out and "DKG arm pernode" in out
+    json.dumps(res)
+
+
+@pytest.mark.slow
+def test_dynamic_phase_churn_with_real_crypto(smoke, capsys):
+    """The dynamic phase's churn run (a) as on the card, at N=4, f=1 with
+    25 transactions a node a push, on ``TorchBackend(device="cpu")``
+    against MockBackend: validator 3 leaves at era 1 and is a validator
+    again at era 2 through a real-crypto SyncKeyGen, with the mock run's
+    batches, deliveries, cranks and host crypto calls."""
+    from hbbft_tpu_torch.crypto.backend import MockBackend
+
+    res = smoke.phase_dynamic(smoke.DYNAMIC_SEED, "cpu", device="cpu",
+                              shapes=(smoke.DYNAMIC_SHAPES[0],), dkg_backend=MockBackend)
+    (sh,) = res["shapes"]
+    real = sh["torch"]
+    assert [s["stage"] for s in real["stages"]] == ["vote out", "vote in", "commit"]
+    assert [era for _, era in real["era_changes"]] == [0, 1]
+    eras = {b["era"]: b["proposers"] for b in real["batches"]}
+    assert 3 not in eras[1] and 3 in eras[2]
+    assert real["stages"][0]["host_calls"]["kg_decrypt"] > 0
+    assert "every pushed transaction committed once" in capsys.readouterr().out
