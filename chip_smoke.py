@@ -75,7 +75,7 @@ Phases (any failure exits non-zero and prints no result line):
              combines), the native hash-to-G2 built; then ``fq_rns_mul`` and
              ``fq_rns_pow`` against their plain versions at the coin path's
              mean and widest launches.
-   era     — the era machinery at ERA_N=32 (``--era-n``): on its own
+   era     — the era machinery at ERA_N=24 (``--era-n``): on its own
              ``TorchBackend()``, ``ArrayHoneyBadgerNet(range(N), ...,
              dynamic=True)`` runs the sequence of ``run_epochs(2,
              churn_at=[1])`` (an epoch, the vote → batched DKG → era
@@ -95,7 +95,7 @@ Phases (any failure exits non-zero and prints no result line):
              (``NetBuilder(range(N)).num_faulty(f).defer_mode("round")``,
              every epoch encrypted, net seed OBJECT_SEED, OBJECT_TXNS
              transactions of OBJECT_TX_BYTES bytes a node from ``--seed``)
-             at OBJECT_SHAPES (N=32, f=10, one epoch; N=4, f=1, ten
+             at OBJECT_SHAPES (N=22, f=7, one epoch; N=4, f=1, three
              epochs) on ``TorchBackend()``, then on the port's
              ``MockBackend``: the same Batches (every correct node's
              transactions in them), ``messages_delivered`` and ``cranks``
@@ -134,12 +134,33 @@ Phases (any failure exits non-zero and prints no result line):
              N=3 to fit that budget: the smoke's other phases take 790–1,030
              s of its 1,200 s on the card.
              ``--dynamic-only`` builds and runs this phase alone.
+   recovery — the recovery half of the network runtime, each part on
+             ``TorchBackend()`` held against the port's ``MockBackend``:
+             (a) the simulation driver (``tools/simulation.py``) at
+             BASELINE config 1, RECOVERY_SIM (N=4, f=1, 100 transactions a
+             batch, ten epochs, the CLI's defaults otherwise), straight
+             through, split by ``checkpoint()`` after RECOVERY_SPLIT epochs
+             and ``Simulation.from_checkpoint`` on a fresh backend, and on
+             the mock: the same batches on every node and epoch; (b) the
+             crash axis: SenderQueue ⊃ QueueingHoneyBadger at N=4, f=0,
+             node 3 down at its third batch for four, eager crypto, 14
+             epochs: the same batches on every node (node 3's after its
+             restart too), ``crash.stats()``, no fault, the same deliveries,
+             cranks and next draw of the shared RNG; (c) the first attack
+             of MATRIX_ATTACKS under the uniform schedule at N=4, one epoch:
+             the same verdicts, fault log and batch digest.  Logged: seconds
+             (per epoch for (a)), dispatches, device seconds by kind and the
+             host split; all five epoch kernels launched, then each against
+             its plain version at the phase's mean and widest launches.  It
+             runs after the dynamic phase (~95 s on the card).
+             ``--recovery-only`` builds and runs this phase alone.
    bench   — the port's kernel bench (``hbbft_tpu_torch.tools.kernel_bench``)
              at its default widths: M muls/s of both field arms and the RNS
              chain, TFLOP/s of the FMA probe.
              Kernel launch counts are zeroed just before each of phases 3,
              limb arm (in the child), sig path, 4, coin epoch, the era
-             change, object, dynamic and bench, and read just after; every
+             change, object, dynamic, recovery and bench, and read just
+             after; every
              kernel of the path must have launched.
 5. a ``{"kernels": [...]}`` line, one row per kernel: launches on its own
    path (epoch, limb arm or bench; the epoch kernels also carry their
@@ -148,7 +169,7 @@ Phases (any failure exits non-zero and prints no result line):
    ``object_launches``, and each epoch kernel that phase's mean and widest
    launch, ``object_mean_lanes`` and ``object_widest_lanes``; the same for
    the dynamic phase, ``dynamic_launches``, ``dynamic_mean_lanes`` and
-   ``dynamic_widest_lanes``; the plane's
+   ``dynamic_widest_lanes``, and the recovery phase, ``recovery_*``; the plane's
    kernels are held at the epoch's
    own shapes first: a whole tree build, the N² proof walk with corrupted
    roots and leaf), largest difference from the plain
@@ -261,20 +282,26 @@ COIN_ROUNDS = 1
 #: host golden checks of the sig path: signature shares and instances sampled
 SIGN_SAMPLES = 100
 COMBINE_SAMPLES = 3
-#: the era phase's N: 32 (f=10), the reference's n32_churn window step.
-#: Cut from the repo's N=100, whose era change is ~30x the work: 3,306 s on
-#: an H100 80GB HBM3 at 700 W, 2,636 s of it host hash-to-G2 (PERF.md §5),
-#: far more than the smoke's time limit; ``--era-n`` sets it.
-ERA_N = 32
+#: the era phase's N: 24 (f=7).  Cut from the repo's N=100, whose era
+#: change is ~30x the work of N=32's: 3,306 s on an H100 80GB HBM3 at 700 W,
+#: 2,636 s of it host hash-to-G2 (PERF.md §5), far more than the smoke's
+#: time limit; then from N=32 (the reference's n32_churn window step) to 24
+#: (~0.4x the hashes) to make room for the recovery phase on a slow host;
+#: ``--era-n`` sets it.
+ERA_N = 24
 #: g1_lincomb's terms held against a pure host fold of g1_mul
 LINCOMB_SAMPLE = 64
 #: the object runtime's shapes (N, f, epochs), both cut from BASELINE's N=100,
 #: whose object-runtime epoch is 6.94M deliveries of host Python (the array
-#: engine carries N=100): N=32 is the widest the object runtime routes
-#: through every device method (an instance combines f+1 = 11 shares, at
-#: least ``device_combine_threshold``); N=4 is BASELINE config 1
-#: (examples/simulation.rs: 4 nodes, f=1, 100 transactions a batch).
-OBJECT_SHAPES = ((32, 10, 1), (4, 1, 10))
+#: engine carries N=100): N=22 is the smallest N whose object runtime routes
+#: through every device method (an instance combines f+1 = 8 shares,
+#: ``device_combine_threshold``), cut from N=32 (11 shares; its epoch 277-396
+#: s, mostly its 1,024 one-instance device combines) to make room for the
+#: recovery phase on a slow host; N=4, f=1 is BASELINE config 1's shape, cut
+#: from ten epochs to three for the same reason, the recovery phase's
+#: simulation driver now running config 1 itself (examples/simulation.rs: 4
+#: nodes, f=1, 100 transactions a batch).
+OBJECT_SHAPES = ((22, 7, 1), (4, 1, 3))
 #: the object runtime's net seed (key generation, the faulty set, the
 #: random scheduler's draws); the transactions come from ``--seed``
 OBJECT_SEED = 11
@@ -1994,6 +2021,277 @@ def phase_dynamic(seed: int, card: str, device=None, shapes=DYNAMIC_SHAPES,
     return res
 
 
+#: the recovery phase.  (a) the port's simulation driver
+#: (hbbft_tpu_torch/tools/simulation.py) at BASELINE config 1, the published
+#: shape of examples/simulation.rs (N=4, f=1, 100 transactions a batch, ten
+#: epochs) with the CLI's defaults for the rest: 200 ten-byte transactions
+#: queued a node, λ = 100 ms, 2,000 KB/s, 1 ms a message, a 64-message
+#: crypto window, seed 0; the split run checkpoints after RECOVERY_SPLIT
+#: epochs and resumes in a fresh Simulation on a fresh backend
+RECOVERY_SIM = dict(num_nodes=4, num_faulty=1, batch_size=100, tx_size=10, txns=200,
+                    epochs=10, lam=100.0, bandwidth=2000.0, cpu_factor=1.0, crypto_window=64,
+                    seed=0)
+RECOVERY_SPLIT = 5
+#: (b) the crash axis, the schedule of the reference's
+#: test_crashes.py::test_crash_parks_traffic_and_restart_catches_up:
+#: SenderQueue ⊃ QueueingHoneyBadger, N=4, f=0, batch size 3, net seed 5,
+#: node 3 down at its 3rd batch for 4 of the others', a checkpoint every 2
+#: batches, eager crypto (the axis's WAL replay needs it), 14 epochs
+CRASH_N, CRASH_SEED, CRASH_BATCH, CRASH_EPOCHS = 4, 5, 3, 14
+CRASH_EVENT = dict(node_id=3, at_epoch=3, down_epochs=4)
+CRASH_CHECKPOINT_EVERY = 2
+#: (c) one scenario cell: the first attack of MATRIX_ATTACKS under the
+#: uniform schedule, N=4 (f=1), one epoch, seed 1 (the reference's fast matrix)
+SCENARIO_N, SCENARIO_SEED = 4, 1
+
+
+def run_simulation(make_backend, what: str, split: int = 0) -> dict:
+    """The port's Simulation at RECOVERY_SIM on ``make_backend()``: straight
+    through, or (``split``) ``split`` epochs, ``checkpoint()``, then
+    ``Simulation.from_checkpoint`` on a fresh ``make_backend()`` for the
+    rest.  Returns each node's batch digests, the table's rows, the
+    deliveries, seconds, dispatches (both backends' for a split run),
+    device seconds by kind and the host split."""
+    import types
+
+    import torch
+
+    from hbbft_tpu_torch.tools.simulation import Simulation
+
+    args = types.SimpleNamespace(**RECOVERY_SIM)
+    first_args = types.SimpleNamespace(**dict(RECOVERY_SIM, epochs=split or args.epochs))
+    out = {"rows": [], "seconds": {}, "device_dispatches": 0, "device_seconds": {},
+           "host_seconds": {}, "host_calls": {}}
+
+    def leg(name, build):
+        backend = make_backend()
+        on_card = getattr(backend, "device", None) is not None and backend.device.type == "cuda"
+        c0 = backend.counters.snapshot()
+        split_t = HostSplit(backend)
+        t = time.perf_counter()
+        with split_t:
+            sim = build(backend)
+            rows = sim.run()
+            if on_card:
+                torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        c1 = backend.counters.snapshot()
+        out["seconds"][name] = secs
+        out["rows"] += [{k: v for k, v in r.items() if k != "wall_s"} for r in rows]
+        out["epoch_wall_s"] = out.get("epoch_wall_s", []) + [r["wall_s"] for r in rows]
+        out["device_dispatches"] += c1["device_dispatches"] - c0["device_dispatches"]
+        for k, v in _counter_delta(c0, c1, "device_seconds_").items():
+            out["device_seconds"][k] = out["device_seconds"].get(k, 0.0) + v
+        for k, v in split_t.split(secs).items():
+            out["host_seconds"][k] = out["host_seconds"].get(k, 0.0) + v
+        for k, v in split_t.calls.items():
+            if v:
+                out["host_calls"][k] = out["host_calls"].get(k, 0) + v
+        return sim
+
+    sim = leg("run", lambda be: Simulation(first_args, be, random.Random(args.seed)))
+    if split:
+        blob = sim.checkpoint()
+        out["checkpoint_bytes"] = len(blob)
+        sim = leg("resume", lambda be: Simulation.from_checkpoint(args, be, blob))
+    if len(out["rows"]) != args.epochs or [r["epoch"] for r in out["rows"]] != list(
+            range(args.epochs)):
+        raise AssertionError(f"{what}: epochs {[r['epoch'] for r in out['rows']]}")
+    out["digests"] = {nid: [dhb_batch_digest(b, {}) for b in node.outputs[:args.epochs]]
+                      for nid, node in sorted(sim.nodes.items())}
+    first = out["digests"][0]
+    if any(d != first for d in out["digests"].values()) or len(first) != args.epochs:
+        raise AssertionError(f"{what}: the nodes committed different batches")
+    out["delivered"], out["faults"] = sim.delivered, sim.faults
+    out["transactions"] = sum(r["txns"] for r in out["rows"])
+    out["virtual_s"] = out["rows"][-1]["virtual_ms"] / 1000.0
+    return out
+
+
+def run_crash_net(backend, what: str) -> dict:
+    """SenderQueue ⊃ QueueingHoneyBadger over the port's VirtualNet with the
+    crash schedule of (b) on ``backend``: boot inputs, then crank until
+    every live node holds each of CRASH_EPOCHS batches.  Raises unless the
+    node crashed and restarted once, its replay was bit-identical (sends
+    suppressed, no fault), and every node committed the same batches.
+    Returns the batches, ``crash.stats()``, the fault log, deliveries,
+    cranks, the net's counters, the next draw of the shared RNG, seconds,
+    dispatches, device seconds by kind and the host split."""
+    import torch
+
+    from hbbft_tpu_torch.net.virtual_net import CrashEvent, CrashSchedule, NetBuilder
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import QueueingHoneyBadger
+    from hbbft_tpu_torch.protocols.sender_queue import SenderQueue
+
+    on_card = getattr(backend, "device", None) is not None and backend.device.type == "cuda"
+    cs = CrashSchedule((CrashEvent(**CRASH_EVENT),), checkpoint_every=CRASH_CHECKPOINT_EVERY)
+    net = (NetBuilder(range(CRASH_N)).num_faulty(0).backend(backend).crashes(cs)
+           .crank_limit(2_000_000)
+           .using(lambda ni, be, rng: SenderQueue(
+               QueueingHoneyBadger.builder(ni, be, rng).batch_size(CRASH_BATCH).build()))
+           .build(seed=CRASH_SEED))
+    c0 = backend.counters.snapshot()
+    split = HostSplit(backend)
+    t = time.perf_counter()
+    with split:
+        for nid in sorted(net.nodes):
+            net.send_input(nid, ("user", ("boot", nid)))
+        for k in range(CRASH_EPOCHS):
+            net.crank_until(lambda nt, k=k: all(
+                len(nd.outputs) >= k + 1 for nd in nt.correct_nodes()
+                if nd.id not in nt.down_node_ids()), max_cranks=400_000)
+        if on_card:
+            torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    c1 = backend.counters.snapshot()
+    st = net.crash.stats()
+    faults = [(node.id, f.kind) for node in net.nodes.values() for f in node.faults_observed]
+    if (st["crashes"], st["restarts"]) != (1, 1) or faults:
+        raise AssertionError(f"{what}: crash stats {st}, faults {faults}")
+    if not net.counters.crash_suppressed_sends > 0:
+        raise AssertionError(f"{what}: the replay re-sent nothing it had sent")
+    digests = {nid: [dhb_batch_digest(b, {}) for b in node.outputs]
+               for nid, node in sorted(net.nodes.items())}
+    common = min(len(d) for d in digests.values())
+    if common < CRASH_EPOCHS or any(d[:common] != digests[0][:common] for d in digests.values()):
+        raise AssertionError(f"{what}: the nodes committed different batches")
+    crashed = CRASH_EVENT["node_id"]
+    return {
+        "digests": digests, "crash_stats": st, "faults": faults,
+        "restarted_node_batches": digests[crashed][CRASH_EVENT["at_epoch"]:],
+        "messages_delivered": net.messages_delivered, "cranks": net.cranks,
+        "net_counters": {k: v for k, v in net.counters.snapshot().items()
+                         if "seconds" not in k and not k.startswith("host_bucket_")},
+        "next_draw": net.rng.random(), "seconds": secs,
+        "device_dispatches": c1["device_dispatches"] - c0["device_dispatches"],
+        "device_seconds": _counter_delta(c0, c1, "device_seconds_"),
+        "host_seconds": split.split(secs),
+        "host_calls": {k: v for k, v in split.calls.items() if v},
+        "counters": {k: c1[k] - c0[k] for k in OBJECT_COUNTS},
+    }
+
+
+def run_scenario_cell(backend) -> dict:
+    """One attack × schedule cell (c) through ``net/scenarios.run_scenario``
+    on ``backend``: its verdicts, fault log, batch digest and the why-stalled
+    report, with seconds, dispatches and the host split."""
+    import torch
+
+    from hbbft_tpu_torch.net.scenarios import MATRIX_ATTACKS, run_scenario
+
+    on_card = getattr(backend, "device", None) is not None and backend.device.type == "cuda"
+    c0 = backend.counters.snapshot()
+    split = HostSplit(backend)
+    t = time.perf_counter()
+    with split:
+        r = run_scenario(MATRIX_ATTACKS[0], "uniform", SCENARIO_N, seed=SCENARIO_SEED,
+                         epochs=1, backend=backend)
+        if on_card:
+            torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    c1 = backend.counters.snapshot()
+    if not r.ok:
+        raise AssertionError(f"scenario {r.attack}x{r.schedule}: {r.row()}")
+    return {"row": r.row(), "fault_log": r.fault_log, "why": r.why,
+            "verdicts": [r.ok, r.batches_identical, r.prefix_identical, r.bounded],
+            "seconds": secs, "device_dispatches": c1["device_dispatches"] - c0["device_dispatches"],
+            "device_seconds": _counter_delta(c0, c1, "device_seconds_"),
+            "host_seconds": split.split(secs),
+            "host_calls": {k: v for k, v in split.calls.items() if v},
+            "counters": {k: c1[k] - c0[k] for k in OBJECT_COUNTS}}
+
+
+def phase_recovery(card: str, make_backend=None) -> dict:
+    """The recovery half of the network runtime on ``make_backend()``
+    (default ``TorchBackend()``), each part held against the port's
+    ``MockBackend``: (a) the simulation driver at BASELINE config 1 straight
+    through, split by checkpoint → resume, and on the mock, the same
+    batches on every node and epoch and the same table; (b) the crash axis,
+    the same batches on every node, the restarted node's included, the same
+    ``crash.stats()``, fault logs (no ``crash:*`` fault), deliveries, cranks
+    and next draw of the shared RNG; (c) one scenario cell, the same
+    verdicts, fault log and batch digest."""
+    from hbbft_tpu_torch.crypto.backend import MockBackend
+    from hbbft_tpu_torch.ops.backend import TorchBackend
+
+    make_backend = make_backend or TorchBackend
+    res: dict = {}
+    what = "simulation N=4, f=1, -b 100, 10 epochs"
+    t = time.perf_counter()
+    full = run_simulation(make_backend, what)
+    split = run_simulation(make_backend, what + " (split)", split=RECOVERY_SPLIT)
+    mock = run_simulation(MockBackend, what + " (mock)")
+    # the split run's virtual clocks ride its checkpoint, but its crypto
+    # columns restart on the fresh backend; the mock's messages pickle to
+    # other sizes (its group elements are not BLS12-381's), so its virtual
+    # clock, and with it what was delivered and checked by the time each
+    # epoch landed, differ: its batches and final deliveries must not
+    columns = {"split": ("epoch", "virtual_ms", "txns", "msgs"), "mock": ("epoch", "txns")}
+    for arm, other in (("split", split), ("mock", mock)):
+        for key in ("digests", "delivered", "faults"):
+            if other[key] != full[key]:
+                raise AssertionError(f"{what}: {key} of the {arm} run differs from the "
+                                     f"uninterrupted run on the card")
+        if ([[r[k] for k in columns[arm]] for r in other["rows"]]
+                != [[r[k] for k in columns[arm]] for r in full["rows"]]):
+            raise AssertionError(f"{what}: the {arm} run's table differs in {columns[arm]}: "
+                                 f"{other['rows']} against {full['rows']}")
+    res["simulation"] = {"torch": full, "split": split, "mock": mock,
+                         "seconds": time.perf_counter() - t}
+    per_epoch = [b - a for a, b in zip([0.0] + full["epoch_wall_s"][:-1], full["epoch_wall_s"])]
+    log(f"{what} [{card}]: the uninterrupted run, the split run ({RECOVERY_SPLIT} epochs, "
+        f"checkpoint of {split['checkpoint_bytes']} bytes, from_checkpoint on a fresh backend) "
+        f"and MockBackend commit the same batches on every node and epoch; "
+        f"{full['transactions']} transactions, {full['delivered']} messages delivered, "
+        f"{full['transactions'] / full['virtual_s']:.1f} tx/s virtual")
+    log(f"{what} [{card}]: seconds {json.dumps(full['seconds'])}, per epoch "
+        f"{json.dumps(per_epoch)}, device_dispatches {full['device_dispatches']}; split "
+        f"seconds {json.dumps(split['seconds'])}, device_dispatches "
+        f"{split['device_dispatches']}; MockBackend {json.dumps(mock['seconds'])}; device "
+        f"seconds {json.dumps(full['device_seconds'])}; host seconds "
+        f"{json.dumps(full['host_seconds'])} over calls {json.dumps(full['host_calls'])}")
+
+    what = "crash axis N=4, f=0, node 3 down at epoch 3 for 4"
+    t = time.perf_counter()
+    real = run_crash_net(make_backend(), what)
+    mock = run_crash_net(MockBackend(), what + " (mock)")
+    for key in ("digests", "crash_stats", "faults", "restarted_node_batches",
+                "messages_delivered", "cranks", "net_counters", "next_draw", "host_calls",
+                "counters"):
+        if real[key] != mock[key]:
+            raise AssertionError(f"{what}: {key} {real[key]} on the card, {mock[key]} on "
+                                 "MockBackend")
+    res["crash"] = {"torch": real, "mock": mock, "seconds": time.perf_counter() - t}
+    rec = real["crash_stats"]["recoveries"][0]
+    log(f"{what} [{card}]: TorchBackend equals MockBackend ({len(real['digests'][0])} batches "
+        f"on every node, node 3's {len(real['restarted_node_batches'])} after its restart; "
+        f"crash stats {json.dumps(real['crash_stats'])}; no fault; "
+        f"{real['messages_delivered']} deliveries, {real['cranks']} cranks; net counters "
+        f"{json.dumps({k: v for k, v in real['net_counters'].items() if k.startswith('crash') or k.startswith('node_')})})")
+    log(f"{what} [{card}]: {real['seconds']:.3f} s (MockBackend {mock['seconds']:.3f}), "
+        f"device_dispatches {real['device_dispatches']}, replayed events "
+        f"{rec['replayed_events']}; device seconds {json.dumps(real['device_seconds'])}; host "
+        f"seconds {json.dumps(real['host_seconds'])} over calls {json.dumps(real['host_calls'])}")
+
+    t = time.perf_counter()
+    real = run_scenario_cell(make_backend())
+    mock = run_scenario_cell(MockBackend())
+    for key in ("row", "fault_log", "why", "verdicts", "host_calls", "counters"):
+        if real[key] != mock[key]:
+            raise AssertionError(f"scenario cell: {key} {real[key]} on the card, {mock[key]} "
+                                 "on MockBackend")
+    res["scenario"] = {"torch": real, "mock": mock, "seconds": time.perf_counter() - t}
+    row = real["row"]
+    log(f"scenario {row['attack']}x{row['schedule']} N={row['n']}, f={row['f']}, seed "
+        f"{row['seed']} [{card}]: TorchBackend equals MockBackend (ok {row['ok']}, fault kinds "
+        f"{json.dumps(row['fault_kinds'])}, batch digest {row['batch_digest'][:16]}, "
+        f"{row['messages_delivered']} deliveries); {real['seconds']:.3f} s (MockBackend "
+        f"{mock['seconds']:.3f}), device_dispatches {real['device_dispatches']}; device seconds "
+        f"{json.dumps(real['device_seconds'])}; host seconds {json.dumps(real['host_seconds'])} "
+        f"over calls {json.dumps(real['host_calls'])}")
+    return res
+
+
 def same(name: str, got, want) -> float:
     """max |kernel - plain|; raises unless the two are equal value for value
     (whether every bit agrees too, the signs of zeros included, is logged)."""
@@ -2454,6 +2752,49 @@ def run_dynamic(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
     return res
 
 
+def run_recovery(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
+    """The recovery phase on the card with the kernel launch counts zeroed
+    just before it and read just after (its five epoch kernels must have
+    launched), then each of the five against its plain version at the
+    phase's mean and widest launch widths."""
+    import torch
+
+    from hbbft_tpu_torch.ops import fq_rns_cuda as K
+
+    reset_launches()
+    t = time.perf_counter()
+    res = phase_recovery(card)
+    torch.cuda.synchronize()
+    secs["recovery_phase"] = time.perf_counter() - t
+    res["all_launches"] = _launch_counts(kernel_fns())
+    res["launches"], res["lanes"] = read_launches(
+        "the recovery half (the simulation driver with checkpoint/resume, the crash axis, "
+        "a scenario cell)", EPOCH_KERNELS)
+    res["widest"] = widest_launches()
+    res["launch_widths_log2"] = {"fq_rns_mul": dict(sorted(K.mul.widths.items()))}
+    log(f"recovery [{card}]: widest launches {json.dumps(res['widest'])}; fq_rns_mul launch "
+        f"widths (key b: [2^(b-1), 2^b) lanes -> launches) "
+        f"{json.dumps(res['launch_widths_log2']['fq_rns_mul'])}")
+    t = time.perf_counter()
+    res["checked_widths"] = check_path_widths(
+        dev, rng, errs, res["launches"], res["lanes"], res["widest"], "recovery",
+        names=tuple(res["widest"]))
+    secs["recovery_checks"] = time.perf_counter() - t
+    return res
+
+
+def log_recovery(res: dict, card: str) -> None:
+    sim, crash, cell = res["simulation"], res["crash"]["torch"], res["scenario"]["torch"]
+    log(f"recovery (a) simulation [{card}]: {sim['seconds']:.3f} s for the three runs, the "
+        f"uninterrupted one {json.dumps(sim['torch']['seconds'])} with "
+        f"{sim['torch']['device_dispatches']} dispatches; (b) crash axis "
+        f"{res['crash']['seconds']:.3f} s, {crash['device_dispatches']} dispatches on the "
+        f"card; (c) scenario cell {res['scenario']['seconds']:.3f} s, "
+        f"{cell['device_dispatches']} dispatches")
+    log(f"recovery launches [{card}]: {json.dumps(res['launches'])}; lanes "
+        f"{json.dumps(res['lanes'])}; widest {json.dumps(res['widest'])}")
+
+
 def log_dynamic(res: dict, card: str) -> None:
     for sh in res["shapes"]:
         st = sh["torch"]["stages"]
@@ -2505,6 +2846,9 @@ def main(argv=None) -> int:
     only.add_argument("--dynamic-only", action="store_true",
                       help="build the kernels, then run the dynamic protocols' phase and its "
                            "checks alone")
+    only.add_argument("--recovery-only", action="store_true",
+                      help="build the kernels, then run the recovery phase (simulation "
+                           "driver, crash axis, scenario cell) and its checks alone")
     # the limb arm's child process (phase_limb_arm starts it)
     ap.add_argument("--limb-arm", nargs=2, metavar=("IN", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -2553,7 +2897,8 @@ def main(argv=None) -> int:
         alone = [(name, run, log_fn) for flag, name, run, log_fn in (
             (args.era_only, "era", run_era, log_era),
             (args.object_only, "object_runtime", run_object, log_object),
-            (args.dynamic_only, "dynamic", run_dynamic, log_dynamic)) if flag]
+            (args.dynamic_only, "dynamic", run_dynamic, log_dynamic),
+            (args.recovery_only, "recovery", run_recovery, log_recovery)) if flag]
         if alone:  # one phase and its checks, after the build
             (name, run, log_fn), = alone
             res = run(args, dev, rng, {"fq_rns_mul": 0.0, "fq_rns_pow": 0.0}, card, secs)
@@ -2659,6 +3004,7 @@ def main(argv=None) -> int:
         era_res = run_era(args, dev, rng, errs, card, secs)
         object_res = run_object(args, dev, rng, errs, card, secs)
         dynamic_res = run_dynamic(args, dev, rng, errs, card, secs)
+        recovery_res = run_recovery(args, dev, rng, errs, card, secs)
 
         reset_launches()
         t = time.perf_counter()
@@ -2683,11 +3029,11 @@ def main(argv=None) -> int:
                 r["object_mean_lanes"] = (object_res["lanes"][r["name"]]
                                           / object_res["launches"][r["name"]])
                 r["object_widest_lanes"] = object_res["widest"][r["name"]]
-            r["dynamic_launches"] = dynamic_res["all_launches"][r["name"]]
-            if r["name"] in dynamic_res["widest"]:
-                r["dynamic_mean_lanes"] = (dynamic_res["lanes"][r["name"]]
-                                           / dynamic_res["launches"][r["name"]])
-                r["dynamic_widest_lanes"] = dynamic_res["widest"][r["name"]]
+            for tag, res in (("dynamic", dynamic_res), ("recovery", recovery_res)):
+                r[f"{tag}_launches"] = res["all_launches"][r["name"]]
+                if r["name"] in res["widest"]:
+                    r[f"{tag}_mean_lanes"] = res["lanes"][r["name"]] / res["launches"][r["name"]]
+                    r[f"{tag}_widest_lanes"] = res["widest"][r["name"]]
         secs["timing"] = time.perf_counter() - t
         prof = None
         if args.profile:
@@ -2705,7 +3051,7 @@ def main(argv=None) -> int:
         "n": N, "f": (N - 1) // 3, "path": path_res, "path_launches": path_launches,
         "stacked_arm": stacked_res, "limb_arm": limb_res, "sig_path": sig_res,
         "epoch": epoch_res, "rs_kill_switch": kill_res, "coin_epoch": coin_res, "era": era_res,
-        "object_runtime": object_res, "dynamic": dynamic_res,
+        "object_runtime": object_res, "dynamic": dynamic_res, "recovery": recovery_res,
         "bench": bench_res, "phase_seconds": secs,
         "path_device_dispatches": c.device_dispatches, "path_pairing_checks": c.pairing_checks,
         "path_rlc_groups": c.rlc_groups, "kernels": rows, "launch_widths_log2": widths,
@@ -2736,6 +3082,7 @@ def main(argv=None) -> int:
     log_era(era_res, card)
     log_object(object_res, card)
     log_dynamic(dynamic_res, card)
+    log_recovery(recovery_res, card)
     log(f"phase seconds [{card}]: {json.dumps(secs)}")
     log(f"path device_dispatches={c.device_dispatches} pairing_checks={c.pairing_checks} "
         f"rlc_groups={c.rlc_groups} peak_memory_bytes={result['peak_memory_bytes']} [{card}]")

@@ -127,6 +127,14 @@ class ArrayHoneyBadgerNet:
     epochs/sec reflect N independent nodes.
     """
 
+    #: opt-in :class:`~hbbft_tpu_torch.obs.tracer.Tracer`: run_epoch emits
+    #: the span hierarchy epoch → subset → rbc/ba phases → per-proposer
+    #: RBC/BA instance spans → coin rounds, on top of whatever dispatch
+    #: spans the backend adds.  Environment, not state: checkpoint() drops
+    #: it (utils/snapshot.py) and a restored engine falls back to None.
+    tracer = None
+    _SNAPSHOT_ENV_ATTRS = ("tracer",)
+
     def __init__(
         self,
         node_ids: Sequence[Any],
@@ -136,6 +144,7 @@ class ArrayHoneyBadgerNet:
         verify_chunk: int = 1 << 17,
         dynamic: bool = False,
         coin_rounds: int = 0,
+        tracer=None,
     ) -> None:
         if backend is None:
             from hbbft_tpu_torch.ops.backend import TorchBackend
@@ -164,6 +173,7 @@ class ArrayHoneyBadgerNet:
         #: peer's share and Lagrange-combines f+1, before the definite
         #: round decides
         self.coin_rounds = coin_rounds
+        self.tracer = tracer
         self.epoch = 0
         self.era = 0
         self.counters = Counters()
@@ -241,12 +251,21 @@ class ArrayHoneyBadgerNet:
         rep = EpochReport(epoch=self.epoch)
         bk = self.backend.buckets
         fast = hostpipe_enabled()
+        tr = self.tracer
         # phase wall clocks run unconditionally (~4 reads per epoch): the
         # per-phase splits feed EpochReport.phase_seconds, the lockstep
-        # critical-path attribution input.
-        clock = time.perf_counter
+        # critical-path attribution input.  Tracer clock when attached
+        # (keeps spans and splits on one timebase), perf_counter otherwise.
+        clock = tr.clock if tr is not None else time.perf_counter
         phase_s: Dict[str, float] = {}
         t_phase = clock()
+        if tr is not None:
+            tr.begin(
+                f"epoch:{self.epoch}", cat="epoch",
+                epoch=self.epoch, n=n, era=self.era,
+            )
+            tr.begin("subset", cat="subset", epoch=self.epoch)
+            tr.begin("rbc", cat="rbc")
 
         # ------ round 0: encrypt + RS-encode + Merkle-commit + Value -------
         # honey_badger.py propose(): canonical-encode the contribution
@@ -407,6 +426,16 @@ class ArrayHoneyBadgerNet:
             _require(values[p] == ct_bytes[p], "RBC value mismatch")
         t_now = clock()
         phase_s["rbc"] = t_now - t_phase
+        if tr is not None:
+            # per-proposer RBC instance spans: in the lockstep schedule all
+            # N instances cover the same wall interval, one per track
+            for idx, nid in enumerate(self.ids):
+                tr.complete(
+                    f"rbc:{idx}", t_phase, t_now, cat="rbc",
+                    track=f"rbc/{idx}", proposer=repr(nid),
+                )
+            tr.end()  # rbc
+            tr.begin("ba", cat="ba")
         t_phase = t_now
         # subset.py _on_broadcast_output: input true to BA_p. BA round 0:
         # sbv_broadcast.py send_bval → BVal(true) to all.
@@ -433,10 +462,25 @@ class ArrayHoneyBadgerNet:
             self._coin_round(rep, round_no=r)
         if self.coin_rounds:
             phase_s["coin"] = clock() - t_coin
+        if tr is not None:
+            # the deciding round consults the FIXED coin (zero-duration
+            # span: no threshold-sign traffic, but the consult is a real
+            # protocol event every BA instance performs)
+            tr.begin(f"coin_round:{self.coin_rounds}", cat="coin", fixed=True)
+            tr.end()
         self._count_msgs(rep, n * n * (n - 1))  # Term
         rep.rounds += 1
         t_now = clock()
         phase_s["ba"] = (t_now - t_phase) - phase_s.get("coin", 0.0)
+        if tr is not None:
+            for idx, nid in enumerate(self.ids):
+                tr.complete(
+                    f"ba:{idx}", t_phase, t_now, cat="ba",
+                    track=f"ba/{idx}", proposer=repr(nid),
+                )
+            tr.end()  # ba
+            tr.end()  # subset
+            tr.begin("decrypt", cat="decrypt", epoch=self.epoch)
         t_phase = t_now
 
         # ------ round 7: ciphertext validation + decryption shares ---------
@@ -589,6 +633,9 @@ class ArrayHoneyBadgerNet:
         rep.rounds += 1
         phase_s["decrypt"] = clock() - t_phase
         rep.phase_seconds = phase_s
+        if tr is not None:
+            tr.end()  # decrypt
+            tr.end()  # epoch
 
         batch = Batch(epoch=self.epoch, contributions=decoded)
         self.epoch += 1
@@ -619,6 +666,9 @@ class ArrayHoneyBadgerNet:
         bk = self.backend.buckets
         fast = hostpipe_enabled()
         n = self.n
+        tr = self.tracer
+        if tr is not None:
+            tr.begin(f"coin_round:{round_no}", cat="coin", round=round_no)
         with bk.region("encode"):
             docs = [
                 canonical.encode(("coin", self.epoch, p_idx, round_no))
@@ -704,6 +754,8 @@ class ArrayHoneyBadgerNet:
                 _require(len(bits) == 1, "array engine: coin bit disagreement")
         rep.coin_rounds += 1
         rep.rounds += 1
+        if tr is not None:
+            tr.end()  # coin_round
 
     def era_change(self) -> EpochReport:
         """Mid-run validator turnover: vote → DKG → new era, executed

@@ -12,16 +12,13 @@ design that makes the N=100 pairing load a single dispatch).
 Everything is seeded and deterministic: one `random.Random` threaded through
 scheduling, adversaries, and protocol RNG needs.
 
-The port's copy of the JAX package's ``net/virtual_net.py`` without its
-crash/restart axis: that needs ``net/crash.py`` and the object-level
-``save_node``/``load_node`` over every protocol module, which the port
-does not have yet, so :meth:`NetBuilder.crashes` refuses a schedule and
-every path here is the reference's crash-free one.  The hooks of other
+The port's copy of the JAX package's ``net/virtual_net.py``, with its
+crash/restart axis (``net/crash.py``, :meth:`NetBuilder.crashes`), its
+critical-path recorder hook and its scenario label.  The hooks of
 subsystems the port does not have yet (the schedule explorer's
-``controlled`` scheduler and race probe, the critical-path recorder and
-metrics log, the traffic driver, the scenario label) come with them.
-Unlike the reference, :meth:`NetBuilder.build` defaults to
-``TorchBackend()`` on the card; the mock is asked for by name.
+``controlled`` scheduler and race probe, the metrics log, the traffic
+driver) come with them.  Unlike the reference, :meth:`NetBuilder.build`
+defaults to ``TorchBackend()`` on the card; the mock is asked for by name.
 """
 
 from __future__ import annotations
@@ -37,10 +34,13 @@ from hbbft_tpu_torch.core.network_info import NetworkInfo
 from hbbft_tpu_torch.core.types import CryptoWork, Step, TargetedMessage
 from hbbft_tpu_torch.crypto.backend import CryptoBackend
 from hbbft_tpu_torch.net.adversary import Adversary, NullAdversary
+from hbbft_tpu_torch.net.crash import CrashEvent, CrashManager, CrashSchedule
 from hbbft_tpu_torch.obs.tracer import Tracer
 from hbbft_tpu_torch.utils.metrics import Counters, EventLog
 
 __all__ = [
+    "CrashEvent",
+    "CrashSchedule",
     "CrankError",
     "NetBuilder",
     "NetMessage",
@@ -57,7 +57,7 @@ class CrankError(Exception):
     ``report`` (when raised by :class:`VirtualNet`) carries the
     :func:`hbbft_tpu_torch.obs.health.why_stalled` diagnosis taken at the
     moment of the trip — the starved protocol instances, the active
-    adversary, and the schedule state — so a tripped limit is
+    adversary/scenario, and the schedule state — so a tripped limit is
     never a bare number without a culprit."""
 
     def __init__(self, message: str, report: Optional[Dict[str, Any]] = None):
@@ -203,11 +203,26 @@ class Node:
 class VirtualNet:
     """N protocol instances + a message queue + a crank loop."""
 
+    #: critical-path recorder (obs/critpath.CritPathRecorder) —
+    #: environment, not state: it holds an open-ended evidence ring the
+    #: harness owns, so whole-net snapshots drop it and restore falls back
+    #: to None.
+    critpath = None
     #: structured per-crank event sink and span tracer (hbbft_tpu_torch/obs) —
     #: environment, not state: both are observer planes holding open-ended
-    #: buffers (and the tracer holds live hook callables).
+    #: buffers (and the tracer holds live hook callables), so a whole-net
+    #: snapshot taken with either attached must drop them rather than die
+    #: in the encoder; restore falls back to None (headless net).
     event_log = None
     tracer = None
+    _SNAPSHOT_ENV_ATTRS = (
+        "critpath",
+        "event_log",
+        "tracer",
+    )
+    #: class fallback so pre-crash-axis whole-net snapshots restore
+    #: (decode sets only serialized attrs); instances always assign it
+    crash = None
 
     def __init__(
         self,
@@ -222,6 +237,8 @@ class VirtualNet:
         event_log: Optional["EventLog"] = None,
         tracer: Optional[Tracer] = None,
         schedule: Optional[NetSchedule] = None,
+        scenario_name: Optional[str] = None,
+        crash_schedule: Optional[CrashSchedule] = None,
     ) -> None:
         self.nodes = nodes
         self.backend = backend
@@ -235,6 +252,23 @@ class VirtualNet:
         #: optional network-condition layer (latency/jitter/drop/partition);
         #: None keeps the legacy instant-delivery behavior byte-identical
         self.schedule = schedule
+        #: scenario label (net/scenarios.py) surfaced by why_stalled
+        self.scenario_name = scenario_name
+        #: optional crash/restart axis (net/crash.py); None keeps every
+        #: code path byte-identical to the crash-free runtime
+        if crash_schedule is not None and defer_mode != "eager":
+            # the WAL replay model re-derives the crash-time state by
+            # re-handling logged events with eager crypto resolution; the
+            # round barrier resolves work BETWEEN cranks against shared
+            # net state the WAL cannot capture, so a restart under
+            # defer_mode="round" would always read as replay divergence
+            raise ValueError(
+                "crash schedules require defer_mode='eager' (the WAL "
+                "replay cannot reproduce the round-barrier resolution)"
+            )
+        self.crash = (
+            CrashManager(crash_schedule) if crash_schedule is not None else None
+        )
         #: virtual clock in cranks; advances 1 per delivery and
         #: fast-forwards when every pending message is future-dated
         self.now = 0
@@ -285,9 +319,15 @@ class VirtualNet:
     def node(self, node_id) -> Node:
         return self.nodes[node_id]
 
+    def down_node_ids(self) -> frozenset:
+        """Nodes currently dead under the crash axis (empty without one)."""
+        return self.crash.down_ids() if self.crash is not None else frozenset()
+
     # -- input ---------------------------------------------------------------
 
     def send_input(self, node_id, input: Any) -> Step:
+        if self.crash is not None and self.crash.on_input(self, node_id, input):
+            return Step()  # node is down: input parked until restart
         node = self.nodes[node_id]
         step = node.algorithm.handle_input(input, rng=self.rng)
         self._process_step(node, step)
@@ -301,7 +341,7 @@ class VirtualNet:
 
     def _crank_error(self, message: str) -> CrankError:
         """A CrankError carrying the why-stalled diagnosis: the starved
-        instances plus the active adversary and schedule state,
+        instances plus the active adversary/scenario and schedule state,
         so a tripped limit names its culprit instead of a bare number."""
         from hbbft_tpu_torch.obs.health import render_why_stalled, why_stalled
 
@@ -323,6 +363,8 @@ class VirtualNet:
     def crank(self) -> Optional[Tuple[Any, Step]]:
         """Deliver one message.  Returns (recipient, step) or None if idle."""
         self._release_due()
+        if self.crash is not None:
+            self.crash.on_crank(self)
         self.adversary.pre_crank(self)
         if not self.queue:
             self._flush_work()
@@ -333,10 +375,18 @@ class VirtualNet:
                 # never burns cranks; real time IS the crank count)
                 self.now = self._future[0][0]
                 self._release_due()
+            if not self.queue and self.crash is not None:
+                # pending crash-axis events (a tick-gated crash/restart,
+                # or an epoch-gated restart the drained net starved out)
+                # are fast-forwarded like future-dated messages
+                if self.crash.on_idle(self):
+                    self._release_due()
             if not self.queue:
                 return None
         self.cranks += 1
         self.now += 1
+        if self.critpath is not None:
+            self.critpath.tick(self.cranks, self.now)
         if self.crank_limit is not None and self.cranks > self.crank_limit:
             raise self._crank_error(f"crank limit {self.crank_limit} exceeded")
 
@@ -357,6 +407,8 @@ class VirtualNet:
             raise self._crank_error(
                 f"message limit {self.message_limit} exceeded"
             )
+        if self.crash is not None:
+            self.crash.on_deliver(self, msg)
         tr = self.tracer
         if tr is None:
             step = node.algorithm.handle_message(msg.sender, msg.payload, rng=self.rng)
@@ -384,6 +436,8 @@ class VirtualNet:
                 deferred=len(step.work),
             )
         self._process_step(node, step)
+        if self.crash is not None:
+            self.crash.after_crank(self)
         return msg.to, step
 
     def crank_round(self) -> int:
@@ -457,6 +511,8 @@ class VirtualNet:
         recipients = tm.target.recipients(self._sorted_ids, our_id=node.id)
         for to in recipients:
             msg = NetMessage(node.id, to, tm.message)
+            if self.crash is not None and self.crash.on_send(self, node, msg):
+                continue  # replayed emission already delivered pre-crash
             if node.faulty:
                 for m in self.adversary.tamper(self, msg):
                     self._enqueue(m)
@@ -469,6 +525,8 @@ class VirtualNet:
         traffic is scheduled exactly like honest traffic.  Future-dated
         messages park on the time-ordered heap and enter ``queue`` only
         once deliverable."""
+        if self.crash is not None and self.crash.on_enqueue(self, msg):
+            return  # recipient is down: parked until its restart
         if self.schedule is not None:
             delay = self.schedule.on_send(self, msg)
             if delay is None:
@@ -543,6 +601,8 @@ class NetBuilder:
         self._schedule: Optional[NetSchedule] = None
         self._event_log: Optional[EventLog] = None
         self._tracer: Optional[Tracer] = None
+        self._crash_schedule: Optional[CrashSchedule] = None
+        self._scenario_name: Optional[str] = None
         self._constructor: Optional[Callable[[NetworkInfo, CryptoBackend], Any]] = None
 
     def num_faulty(self, f: int) -> "NetBuilder":
@@ -583,17 +643,16 @@ class NetBuilder:
         self._schedule = sched
         return self
 
-    def crashes(self, sched: Any) -> "NetBuilder":
-        """The crash/restart axis of the JAX package's ``net/crash.py``.
-        The port does not have it yet (it needs the object-level
-        ``save_node``/``load_node`` of every protocol module): None is the
-        crash-free runtime, anything else raises."""
-        if sched is not None:
-            raise NotImplementedError(
-                "crash schedules need net/crash.py and the object-level "
-                "save_node/load_node, which the port does not have yet "
-                "(ROADMAP queue 1, item 1)"
-            )
+    def crashes(self, sched: Optional[CrashSchedule]) -> "NetBuilder":
+        """Attach a crash/restart schedule (net/crash.py); None keeps the
+        crash-free runtime byte-identical."""
+        self._crash_schedule = sched
+        return self
+
+    def scenario(self, name: str) -> "NetBuilder":
+        """Label the run for fault diagnosis: why_stalled and CrankError
+        reports name this scenario."""
+        self._scenario_name = name
         return self
 
     def trace(self, sink: Union[EventLog, Tracer]) -> "NetBuilder":
@@ -668,4 +727,6 @@ class NetBuilder:
             event_log=self._event_log,
             tracer=self._tracer,
             schedule=self._schedule,
+            scenario_name=self._scenario_name,
+            crash_schedule=self._crash_schedule,
         )

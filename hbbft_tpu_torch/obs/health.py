@@ -1,4 +1,5 @@
-"""Stall diagnosis: the "why-stalled" protocol report.
+"""Run health: periodic heartbeat + stall detection with a "why-stalled"
+protocol report — the port's copy of the JAX package's ``obs/health.py``.
 
 HoneyBadger's liveness argument is compositional: an epoch terminates iff
 every accepted RBC reaches Echo/Ready quorum and every BA instance's
@@ -10,17 +11,27 @@ Ready (2f+1) quorum, or a ThresholdDecrypt short of f+1 shares.
 :func:`why_stalled` walks the live protocol objects (through the
 SenderQueue → QueueingHoneyBadger → DynamicHoneyBadger → HoneyBadger →
 Subset wrapper chain) and reports exactly that, per node;
-``VirtualNet`` attaches it to every tripped limit.
+``VirtualNet`` attaches it to every tripped limit.  A runner's scenario
+label, its crash axis (``net.crash``) and its critical-path recorder's
+latest gate (``net.critpath``) lead the report.
 
-The port's copy of the JAX package's ``obs/health.py`` without the parts
-whose subsystems the port does not have yet: the crash-axis, traffic and
-critical-path-gate sections of the report, the scenario label, and the
-heartbeat ``HealthReporter``.
+:class:`HealthReporter` is the driver-facing wrapper: call :meth:`tick`
+once per crank burst / epoch with the run's monotonic progress figures;
+it emits a JSON heartbeat every ``interval_s`` wall seconds (epoch,
+msgs/s, device-time share, fault count, counter deltas) and — after
+``stall_timeout_s`` seconds without progress — a one-shot why-stalled
+report.  Wired into ``hbbft_tpu_torch/tools/simulation.py``
+(``--heartbeat`` / ``--stall-timeout``).
+
+The reference's traffic section (a starved or saturated traffic source)
+comes with the port's ``traffic/``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import json
+import time
+from typing import Any, Callable, Dict, List, Optional
 
 
 # ---------------------------------------------------------------------------
@@ -140,12 +151,15 @@ def _inspect_core(core: Any) -> Dict[str, Any]:
 
 
 def _scenario_context(net: Any) -> Optional[Dict[str, Any]]:
-    """Attack/schedule identity of a VirtualNet-like runner — names the
-    active adversary and the network condition so a starved instance
-    reads as "partition isolates {2,3}; BA coin quorum short", not as an
-    anonymous missing quorum.  Duck-typed and total: absent attributes
-    simply contribute nothing."""
+    """Attack/scenario/schedule identity of a VirtualNet-like runner —
+    names the active adversary and the network condition so a starved
+    instance reads as "partition isolates {2,3}; BA coin quorum short",
+    not as an anonymous missing quorum.  Duck-typed and total: absent
+    attributes simply contribute nothing."""
     ctx: Dict[str, Any] = {}
+    name = getattr(net, "scenario_name", None)
+    if name:
+        ctx["scenario"] = name
     adv = getattr(net, "adversary", None)
     if adv is not None and type(adv).__name__ != "NullAdversary":
         describe = getattr(adv, "describe", None)
@@ -167,6 +181,8 @@ def _scenario_context(net: Any) -> Optional[Dict[str, Any]]:
 
 def _scenario_summary(ctx: Dict[str, Any]) -> str:
     parts = []
+    if "scenario" in ctx:
+        parts.append(f"scenario {ctx['scenario']}")
     adv = ctx.get("adversary")
     if adv:
         parts.append(f"adversary {adv.get('name', adv)}" if isinstance(adv, dict) else f"adversary {adv}")
@@ -187,22 +203,80 @@ def _scenario_summary(ctx: Dict[str, Any]) -> str:
     return "; ".join(parts)
 
 
+def _crash_context(net: Any) -> Optional[Dict[str, Any]]:
+    """Crash-axis state of a runner with a crash manager attached
+    (``net.crash`` — hbbft_tpu_torch/net/crash.py): which nodes are down since
+    when, which checkpoint each would restore from, and completed
+    restarts.  Duck-typed and total like the other contexts."""
+    cm = getattr(net, "crash", None)
+    if cm is None:
+        return None
+    describe = getattr(cm, "describe", None)
+    if not callable(describe):
+        return None
+    try:
+        ctx = dict(describe(getattr(net, "now", 0)))
+    except Exception:
+        return None
+    return ctx if ctx.get("nodes") else None
+
+
+def _crash_summary(ctx: Dict[str, Any]) -> List[str]:
+    lines: List[str] = []
+    for nid, st in sorted(ctx.get("nodes", {}).items()):
+        state = st.get("state")
+        if state in ("down", "restoring"):
+            ck = st.get("checkpoint_epoch", [0, 0])
+            lines.append(
+                f"node {nid} down since crank {st.get('down_since_crank')}"
+                f" / restoring from checkpoint at epoch "
+                f"(era {ck[0]}, epoch {ck[1]})"
+                + (
+                    ""
+                    if st.get("restart_pending")
+                    else " — no restart scheduled"
+                )
+            )
+        elif state == "failed":
+            lines.append(
+                f"node {nid} down since crank "
+                f"{st.get('down_since_crank')} — recovery FAILED "
+                "(crash:recovery_failed attributed)"
+            )
+    return lines
+
+
 def why_stalled(net_or_nodes: Any) -> Dict[str, Any]:
     """Build the why-stalled report for a quiesced-but-unfinished run.
 
     Accepts a :class:`~hbbft_tpu_torch.net.virtual_net.VirtualNet`, an
     ``examples.simulation.Simulation``, or any ``{node_id: node}`` mapping
     whose values carry the protocol under ``.algorithm``/``.algo`` (or
-    are the protocol itself).  When the runner carries an adversary or a
-    schedule, the report leads with that context — a starved quorum
-    under a live partition names the partition, not just the shortfall.
+    are the protocol itself).  When the runner carries an adversary /
+    scenario / schedule (the scenario harness), the report leads with
+    that context — a starved quorum under a live partition names the
+    partition, not just the shortfall.
     """
     nodes = getattr(net_or_nodes, "nodes", net_or_nodes)
     report: Dict[str, Any] = {"nodes": {}, "summary": []}
+    # lead with the latest critical-path gate (net.critpath, when the
+    # harness attached a CritPathRecorder): "last epoch gated by BA(3)
+    # coin round 2 on node 7" orients the reader before the per-node
+    # quorum shortfalls below
+    cp = getattr(net_or_nodes, "critpath", None)
+    gate_line = getattr(cp, "gate_line", None)
+    line = gate_line() if callable(gate_line) else None
+    if line:
+        report["gate"] = line
+        report["summary"].append(f"last {line}")
     ctx = _scenario_context(net_or_nodes)
     if ctx is not None:
         report["scenario"] = ctx
         report["summary"].append(_scenario_summary(ctx))
+    cctx = _crash_context(net_or_nodes)
+    if cctx is not None:
+        report["crash"] = cctx
+        report["summary"].extend(_crash_summary(cctx))
     for nid in sorted(nodes, key=repr):
         node = nodes[nid]
         algo = getattr(node, "algorithm", None)
@@ -249,3 +323,158 @@ def render_why_stalled(report: Dict[str, Any]) -> str:
     if not report["summary"]:
         lines.append("  no blocked protocol instances found")
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Heartbeat + stall detector
+# ---------------------------------------------------------------------------
+
+
+def _print_sink(record: Dict[str, Any]) -> None:
+    print(json.dumps(record, default=repr), flush=True)
+
+
+class HealthReporter:
+    """Periodic heartbeat + no-progress stall detector for soak runs.
+
+    ``counters_fn`` returns the run's merged counter snapshot (e.g.
+    ``net.metrics`` or ``backend.counters.snapshot``); heartbeats carry
+    the nonzero deltas since the previous beat plus a device-time share.
+    ``stall_report_fn`` (e.g. ``lambda: why_stalled(net)``) is invoked
+    once per stall episode; progress re-arms the detector.  The
+    reference's ``gate_fn`` (the soak cell's critical-path one-liner) and
+    ``shard_stats_fn`` (a mesh backend's balance) come with their callers,
+    the soak half and ``parallel/``.
+    """
+
+    def __init__(
+        self,
+        interval_s: float = 60.0,
+        stall_timeout_s: float = 0.0,
+        counters_fn: Optional[Callable[[], Dict[str, float]]] = None,
+        stall_report_fn: Optional[Callable[[], Dict[str, Any]]] = None,
+        sink: Callable[[Dict[str, Any]], None] = _print_sink,
+        clock: Callable[[], float] = time.monotonic,
+    ) -> None:
+        self.interval_s = interval_s
+        self.stall_timeout_s = stall_timeout_s
+        self.counters_fn = counters_fn
+        self.stall_report_fn = stall_report_fn
+        self.sink = sink
+        self.clock = clock
+        t = clock()
+        self._t_start = t
+        self._t_beat = t
+        self._t_progress = t
+        self._last_progress: Any = None
+        self._last_counters: Dict[str, float] = (
+            dict(counters_fn()) if counters_fn else {}
+        )
+        self._last_msgs: Optional[float] = None
+        self._seq = 0
+        self.stalled = False
+        self.beats: List[Dict[str, Any]] = []
+
+    def report_quiesced(
+        self, epoch: Optional[int] = None, msgs: Optional[float] = None
+    ) -> Dict[str, Any]:
+        """Emit a stall record UNCONDITIONALLY — for drivers that detect
+        quiescence-before-completion themselves (the event loop drained
+        with the run unfinished, so no further :meth:`tick` will ever
+        observe the timeout).  This is exactly the quiesced-but-unfinished
+        state :func:`why_stalled` introspects."""
+        now = self.clock()
+        record: Dict[str, Any] = {
+            "stall": True,
+            "quiesced": True,
+            "seconds_without_progress": round(now - self._t_progress, 1),
+            "epoch": epoch,
+            "msgs": msgs,
+        }
+        if self.stall_report_fn is not None:
+            record["why"] = self.stall_report_fn()
+        self.stalled = True
+        self.sink(record)
+        return record
+
+    def tick(
+        self,
+        epoch: Optional[int] = None,
+        msgs: Optional[float] = None,
+        faults: Optional[int] = None,
+        **extra: Any,
+    ) -> Optional[Dict[str, Any]]:
+        """Report progress; emits a heartbeat/stall record when due.
+
+        Progress — for stall purposes — is the EPOCH (the run's externally
+        visible output), falling back to ``msgs`` only when no epoch is
+        supplied.  Counting delivered messages as progress would make the
+        detector inert in a livelock: the object engine's crank loop
+        delivers messages between any two ticks, so ``msgs`` always moves
+        even when no epoch ever completes — exactly the state a soak run
+        needs reported."""
+        now = self.clock()
+        progress = epoch if epoch is not None else msgs
+        if progress != self._last_progress:
+            self._last_progress = progress
+            self._t_progress = now
+            self.stalled = False
+        if (
+            self.stall_timeout_s
+            and not self.stalled
+            and now - self._t_progress >= self.stall_timeout_s
+        ):
+            self.stalled = True
+            record: Dict[str, Any] = {
+                "stall": True,
+                "seconds_without_progress": round(now - self._t_progress, 1),
+                "epoch": epoch,
+                "msgs": msgs,
+            }
+            if self.stall_report_fn is not None:
+                record["why"] = self.stall_report_fn()
+            self.sink(record)
+            return record
+        if now - self._t_beat < self.interval_s:
+            return None
+        dt = now - self._t_beat
+        self._t_beat = now
+        self._seq += 1
+        beat: Dict[str, Any] = {
+            "heartbeat": self._seq,
+            "uptime_s": round(now - self._t_start, 1),
+            "epoch": epoch,
+            "msgs": msgs,
+            "faults": faults,
+        }
+        if msgs is not None and self._last_msgs is not None and dt > 0:
+            beat["msgs_per_s"] = round((msgs - self._last_msgs) / dt, 1)
+        self._last_msgs = msgs
+        if self.counters_fn is not None:
+            cur = dict(self.counters_fn())
+            delta = {
+                k: round(cur[k] - self._last_counters.get(k, 0), 4)
+                for k in cur
+                if cur[k] != self._last_counters.get(k, 0)
+            }
+            self._last_counters = cur
+            beat["counters_delta"] = delta
+            if dt > 0:
+                # NOTE: under pipelined dispatch (ops/pipeline.py) the
+                # per-dispatch [dispatch, fetch] intervals overlap, so
+                # device_share may legitimately exceed 1.0 — it reads as
+                # "device dispatch wall including overlapped assembly".
+                beat["device_share"] = round(
+                    delta.get("device_seconds", 0.0) / dt, 4
+                )
+                host = delta.get("host_assembly_seconds", 0.0)
+                if host:
+                    beat["host_assembly_share"] = round(host / dt, 4)
+                ovl = delta.get("overlap_seconds", 0.0)
+                dev = delta.get("device_seconds", 0.0)
+                if ovl and dev > 0:
+                    beat["overlap_fraction"] = round(ovl / dev, 4)
+        beat.update(extra)
+        self.beats.append(beat)
+        self.sink(beat)
+        return beat

@@ -1,32 +1,43 @@
-"""Checkpoint/resume: serialize a live engine, restore it elsewhere — the
-port's copy of the JAX package's ``utils/snapshot.py``.
+"""Checkpoint/resume: serialize a live protocol node, restore it elsewhere
+— the port's copy of the JAX package's ``utils/snapshot.py``.
 
-:func:`save_node` walks an object graph down to primitives and crypto
-elements and emits canonical bytes (utils/canonical.py: the same
-no-code-exec discipline as the wire layer, NOT pickle); :func:`load_node`
-rebuilds an equivalent object that continues deterministically.
+The reference keeps every protocol state type serde-serializable so an
+embedder can persist a node and resume it (SURVEY.md §5 checkpoint row:
+"all message/state types are serde-serializable, so embedders can
+persist"; `JoinPlan` § is the built-in era snapshot).  This module is that
+capability for the whole stack: :func:`save_node` walks a protocol
+instance's object graph down to primitives and crypto elements and emits
+canonical bytes (utils/canonical.py — the same no-code-exec discipline as
+the wire layer, NOT pickle); :func:`load_node` rebuilds an equivalent
+instance that continues the protocol deterministically.
 
 Scope and semantics:
 
-* **Quiescent points only.** :func:`save_node` refuses objects holding
-  callables anywhere in their state (closures, deferred resolvers), turning
-  a violated assumption into an immediate error instead of a
-  silently-wrong checkpoint.  ``ArrayHoneyBadgerNet.checkpoint`` flushes
-  the backend's pipeline before it saves.
+* **Quiescent points only.** Deferred :class:`~hbbft_tpu_torch.core.types.
+  CryptoWork` items carry result callbacks (closures) and live in Steps,
+  never in protocol instance state — so a node is snapshotable whenever no
+  Step of its own is outstanding, i.e. between cranks once the round's
+  crypto barrier has resolved.  :func:`save_node` refuses objects holding
+  callables anywhere in their state, turning a violated assumption into an
+  immediate error instead of a silently-wrong checkpoint.
+  ``ArrayHoneyBadgerNet.checkpoint`` flushes the backend's pipeline before
+  it saves.
 * **The crypto backend is environment, not state.** Backends (device
-  handles, kernel caches) and their stateless ``Group`` objects are encoded
-  as placeholders; :func:`load_node` re-attaches the backend the caller
-  provides.  Everything consensus-visible (key material, counters, RNG
-  state, reports) rides in the snapshot.
+  handles, compiled-kernel caches) and their stateless ``Group`` objects
+  are encoded as placeholders; :func:`load_node` re-attaches the backend
+  the caller provides.  Everything consensus-visible — key material,
+  counters, RNG state, buffered messages, per-instance sub-protocol
+  state — rides in the snapshot.
 * **Shared mutable state stays shared.** The encoder memoizes every
-  non-primitive node: the single ``random.Random`` the engine threads
-  through key generation and epochs is serialized once and re-shared on
-  restore, so a restored engine's future draws match the original's
-  exactly.  Cycles are handled the same way.
+  non-primitive node: the single ``random.Random`` the builders thread
+  through all layers (SURVEY.md §4 determinism requirement) is serialized
+  once and re-shared on restore, so a restored node's future coin flips and
+  transaction samples match the original's exactly.  Cycles are handled
+  the same way.
 
-Decoding instantiates only classes from the port's state modules
-(``_STATE_MODULES``), sets attributes by name, and never executes embedded
-code: malformed input raises :class:`SnapshotError`.
+Security note: decoding instantiates only classes from the fixed registry
+below (framework state types), sets attributes by name, and never executes
+embedded code — malformed input raises :class:`SnapshotError`.
 """
 
 from __future__ import annotations
@@ -50,14 +61,42 @@ class SnapshotError(ValueError):
 # ---------------------------------------------------------------------------
 
 _STATE_MODULES = (
+    "hbbft_tpu_torch.core.types",
+    "hbbft_tpu_torch.core.fault_log",
     "hbbft_tpu_torch.core.network_info",
     "hbbft_tpu_torch.crypto.keys",
     "hbbft_tpu_torch.crypto.poly",
     "hbbft_tpu_torch.crypto.merkle",
     "hbbft_tpu_torch.crypto.erasure",
+    "hbbft_tpu_torch.protocols.bool_set",
+    "hbbft_tpu_torch.protocols.broadcast",
+    "hbbft_tpu_torch.protocols.sbv_broadcast",
+    "hbbft_tpu_torch.protocols.binary_agreement",
+    "hbbft_tpu_torch.protocols.threshold_sign",
+    "hbbft_tpu_torch.protocols.threshold_decrypt",
+    "hbbft_tpu_torch.protocols.subset",
     "hbbft_tpu_torch.protocols.honey_badger",
+    "hbbft_tpu_torch.protocols.change",
+    "hbbft_tpu_torch.protocols.votes",
+    "hbbft_tpu_torch.protocols.sync_key_gen",
+    "hbbft_tpu_torch.protocols.dynamic_honey_badger",
+    "hbbft_tpu_torch.protocols.transaction_queue",
     "hbbft_tpu_torch.engine.array_engine",
+    "hbbft_tpu_torch.protocols.queueing_honey_badger",
+    "hbbft_tpu_torch.protocols.sender_queue",
     "hbbft_tpu_torch.utils.metrics",
+    # Whole-network checkpoint: VirtualNet + Node + NetMessage + adversaries,
+    # so an entire simulation (nodes, in-flight queue, shared RNG) resumes
+    # deterministically from bytes.
+    "hbbft_tpu_torch.net.virtual_net",
+    "hbbft_tpu_torch.net.adversary",
+    # crash axis: schedules, per-node tracks (checkpoint blobs, WALs,
+    # parked traffic) — a whole-net snapshot taken mid-outage resumes
+    # with the outage intact
+    "hbbft_tpu_torch.net.crash",
+    # The reference also registers its control plane here (control.slo,
+    # control.controller, control.trace); the port has no control/ yet, and
+    # its modules join this registry when they are ported.
 )
 
 _registry_cache: Optional[Dict[str, type]] = None
@@ -91,7 +130,14 @@ def _state_attrs(obj: Any) -> List[Tuple[str, Any]]:
     contribute none — that must not force the dict path) and merges any
     instance ``__dict__`` on top, so hybrid classes (slotted dataclass over
     a dict-backed base) serialize completely.  Sorted for determinism.
+
+    Attributes named in the class's ``_SNAPSHOT_ENV_ATTRS`` are dropped:
+    they hold environment (live observer callables, attached drivers —
+    e.g. QueueingHoneyBadger.sample_listener, VirtualNet.traffic), not
+    consensus state, and restore falls back to the class default exactly
+    like the backend/tracer contract.
     """
+    env = getattr(type(obj), "_SNAPSHOT_ENV_ATTRS", ())
     attrs: Dict[str, Any] = {}
     for c in reversed(type(obj).__mro__):
         s = c.__dict__.get("__slots__")
@@ -103,7 +149,7 @@ def _state_attrs(obj: Any) -> List[Tuple[str, Any]]:
             if hasattr(obj, name):
                 attrs[name] = getattr(obj, name)
     attrs.update(getattr(obj, "__dict__", None) or {})
-    return sorted(attrs.items())
+    return sorted((n, v) for n, v in attrs.items() if n not in env)
 
 
 # ---------------------------------------------------------------------------
@@ -188,13 +234,28 @@ class _Encoder:
             items = [self.encode(x) for x in members]
             return ("s" if isinstance(obj, set) else "fs", idx, items)
 
+        # -- module-level functions from registered modules ----------------
+        # (e.g. SenderQueue's msg_epoch_fn default): encoded BY NAME and
+        # re-looked-up on decode — never deserialized code.  Closures and
+        # lambdas have no stable name and are rejected below.
+        import types as _types
+
+        if isinstance(obj, _types.FunctionType):
+            mod = getattr(obj, "__module__", None)
+            qn = getattr(obj, "__qualname__", "")
+            if mod in _STATE_MODULES and "<" not in qn and "." not in qn:
+                import importlib
+
+                if getattr(importlib.import_module(mod), qn, None) is obj:
+                    return ("fn", mod, qn)
+
         # -- registered framework objects ---------------------------------
         tag = _class_tag(type(obj))
         if tag not in _registry():
             if callable(obj):
                 raise SnapshotError(
                     f"callable in state ({obj!r}): snapshot only at "
-                    "quiescent points (no outstanding deferred work)"
+                    "quiescent points (no outstanding CryptoWork)"
                 )
             raise SnapshotError(f"unregistered state class {tag}")
         idx = self._memoize(obj)
@@ -273,6 +334,17 @@ class _Decoder:
             fs = frozenset(self.decode(x) for x in items)
             self.objects[idx] = fs
             return fs
+        if tag == "fn":
+            _, mod, qn = node
+            if mod not in _STATE_MODULES or "." in qn or "<" in qn:
+                raise SnapshotError(f"function outside registry: {mod}:{qn}")
+            import importlib
+            import types as _types
+
+            fn = getattr(importlib.import_module(mod), qn, None)
+            if not isinstance(fn, _types.FunctionType):
+                raise SnapshotError(f"unknown function {mod}:{qn}")
+            return fn
         if tag == "o":
             _, idx, clstag, attrs = node
             cls = _registry().get(clstag)
@@ -297,8 +369,8 @@ _MAGIC = b"HBTPUSNAP1"
 
 
 def save_node(algo: Any) -> bytes:
-    """Serialize an object of the port's state modules (the array engine,
-    with everything it holds) to canonical snapshot bytes."""
+    """Serialize a protocol instance (any layer: RBC/BA/…/QHB or a
+    SenderQueue-wrapped stack) to canonical snapshot bytes."""
     tree = _Encoder().encode(algo)
     return _MAGIC + canonical.encode(tree)
 

@@ -55,6 +55,7 @@ class Pkg:
         self.tracer = imp("obs.tracer")
         self.health = imp("obs.health")
         self.metrics = imp("utils.metrics")
+        self.snap = imp("utils.snapshot")
 
     def net(self, node_ids):
         """A ``NetBuilder`` on this package's ``MockBackend`` (the port's

@@ -214,7 +214,7 @@ def test_limb_arm_payload_roundtrip(smoke):
 
 def test_era_phase_at_a_tiny_size(smoke, capsys):
     """The era phase and the device MSM's checks on the CPU backend at N=4
-    (the card runs the same code at N=32, and at N=100 with ``--era-n``):
+    (the card runs the same code at N=24, and at N=100 with ``--era-n``):
     the churn counts, the new era, the restored engine, the sampled host
     split; ``g1_lincomb`` with the lane cap at 16 (37 terms: two device
     chunks and a host tail)."""
@@ -306,6 +306,37 @@ def test_dynamic_phase_at_a_tiny_size(smoke, capsys):
     assert (per["ciphertexts_verified"], bat["ciphertexts_verified"]) == (0, n * n + n ** 3)
     out = capsys.readouterr().out
     assert "TorchBackend equals MockBackend batch for batch" in out and "DKG arm pernode" in out
+    json.dumps(res)
+
+
+def test_recovery_phase_on_the_mock(smoke, capsys):
+    """The recovery phase's three parts at their card shapes with both arms
+    on the port's MockBackend (the same calls the card makes, no real
+    crypto): (a) the simulation straight through, split at epoch 5 and
+    resumed in a fresh Simulation, ten equal batches on every node; (b)
+    the crash axis, one crash and one restart of node 3 replayed without a
+    fault; (c) the first matrix attack's cell passes.  The timed functions
+    are restored after."""
+    from hbbft_tpu_torch.crypto.backend import MockBackend
+    from hbbft_tpu_torch.crypto.keys import PublicKeySet
+
+    timed = PublicKeySet.encrypt
+    res = smoke.phase_recovery("cpu", make_backend=MockBackend)
+    assert PublicKeySet.encrypt is timed
+    sim = res["simulation"]
+    assert sim["torch"]["digests"] == sim["split"]["digests"] == sim["mock"]["digests"]
+    assert len(sim["torch"]["digests"][0]) == smoke.RECOVERY_SIM["epochs"]
+    assert set(sim["split"]["seconds"]) == {"run", "resume"}
+    assert sim["split"]["checkpoint_bytes"] > 0
+    crash = res["crash"]["torch"]
+    assert crash["crash_stats"]["restarts"] == 1 and crash["faults"] == []
+    assert len(crash["digests"][3]) >= smoke.CRASH_EPOCHS
+    assert crash["net_counters"]["crash_replayed_events"] > 0
+    cell = res["scenario"]["torch"]
+    assert cell["row"]["ok"] and cell["row"]["attack"] == "equivocate"
+    out = capsys.readouterr().out
+    assert "commit the same batches on every node and epoch" in out
+    assert "TorchBackend equals MockBackend" in out
     json.dumps(res)
 
 

@@ -2,7 +2,7 @@
 checks, a tripped crank limit and its why-stalled report, the schedule
 layer (latency, jitter, drops, partitions), the attack library, the
 attached observers (``Tracer`` spans and histograms, the ``EventLog``), the
-stall reports, the crash axis the port refuses, and the verify skill's
+stall reports, the crash axis's builder, and the verify skill's
 BinaryAgreement handle.  Each net is built in both packages on each one's
 ``MockBackend`` from the same seed and driven by the same code; the runs
 must agree on outputs, faults, deliveries, cranks, counters and the next
@@ -49,11 +49,18 @@ def test_num_faulty_rejects_n_at_most_3f(n, f):
 
 
 def test_crashes_is_not_ported():
+    """The crash axis was refused until ``net/crash.py`` came to the port;
+    now ``crashes`` takes a schedule (tests/test_torch_crashes.py holds the
+    axis against the reference), None keeps the crash-free runtime, and a
+    schedule under the round barrier is refused as in the reference."""
     b = PORT.vn.NetBuilder(range(4))
     assert b.crashes(None) is b
-    with pytest.raises(NotImplementedError, match="net/crash.py"):
-        b.crashes(object())
-    assert not hasattr(PORT.vn.VirtualNet, "crash")
+    sched = PORT.vn.CrashSchedule((PORT.vn.CrashEvent(at_epoch=1, down_epochs=2),))
+    assert b.crashes(sched) is b
+    assert PORT.vn.VirtualNet.crash is None
+    with pytest.raises(ValueError, match="eager"):
+        (b.backend(PORT.backend.MockBackend()).defer_mode("round")
+         .using(ba(PORT)).build(seed=1))
 
 
 def test_builder_defaults_to_the_card():
