@@ -75,7 +75,7 @@ Phases (any failure exits non-zero and prints no result line):
              combines), the native hash-to-G2 built; then ``fq_rns_mul`` and
              ``fq_rns_pow`` against their plain versions at the coin path's
              mean and widest launches.
-   era     — the era machinery at ERA_N=24 (``--era-n``): on its own
+   era     — the era machinery at ERA_N=16 (``--era-n``): on its own
              ``TorchBackend()``, ``ArrayHoneyBadgerNet(range(N), ...,
              dynamic=True)`` runs the sequence of ``run_epochs(2,
              churn_at=[1])`` (an epoch, the vote → batched DKG → era
@@ -115,9 +115,9 @@ Phases (any failure exits non-zero and prints no result line):
              port's ``MockBackend``: (a) N=4, f=1 with validator 3 voted out
              (era 1) and back in with its own key through SyncKeyGen (era
              2), the schedule of the reference's churn test, then a second
-             push committed; (b) N=16, f=5 in steady state: each queue
+             push committed; (b) N=10, f=3 in steady state: each queue
              starts with 24 of the node's transactions, the 25th is pushed,
-             and one batch commits all 400.
+             and one batch commits all 250.
              Both arms must give the same batches on every correct node,
              deliveries, cranks, era changes, work counts and host crypto
              calls, every pushed transaction committed exactly once.  Then
@@ -128,11 +128,11 @@ Phases (any failure exits non-zero and prints no result line):
              host split (``DynamicSplit``); all five epoch kernels launched,
              then each against its plain version at the phase's mean and
              widest launches.  It runs after the object phase, alone.  Its
-             budget is 200 s on the card: (a) ~110, (b) ~40, (c) ~35, the
+             budget is 180 s on the card: (a) ~110, (b) ~15, (c) ~35, the
              checks ~6, most of it the host's pairing-checked SyncKeyGen
-             decryptions and host combines.  (b) is one batch and (c) is at
-             N=3 to fit that budget: the smoke's other phases take 790–1,030
-             s of its 1,200 s on the card.
+             decryptions and host combines.  (b) is one batch at N=10 (N=16
+             until the traffic phase came) and (c) is at N=3 to fit that
+             budget.
              ``--dynamic-only`` builds and runs this phase alone.
    recovery — the recovery half of the network runtime, each part on
              ``TorchBackend()`` held against the port's ``MockBackend``:
@@ -154,13 +154,45 @@ Phases (any failure exits non-zero and prints no result line):
              its plain version at the phase's mean and widest launches.  It
              runs after the dynamic phase (~95 s on the card).
              ``--recovery-only`` builds and runs this phase alone.
+   traffic — client traffic and the adaptive batch controller, each part
+             on ``TorchBackend()``: (a) the reference bench's qhb_traffic
+             N=100 point with the controller in the loop
+             (``ArrayHoneyBadgerNet(range(100), seed=0, dynamic=True)``, an
+             ``ArrayTrafficDriver`` with an open-loop source at 1.0 x N·B =
+             12,800 transactions an epoch from a ZipfPopulation(10,000,
+             1.1) of fixed 32-byte payloads, ``random.Random(1234)``, B=128,
+             mempools of 2·N·B, each client to one node, an
+             ``AdaptiveBatchController(SLO(p99_epochs=4.0),
+             initial_b=128)`` and a MetricsLog on the engine), two epochs:
+             every node the same Batch, each node's contribution the
+             proposal the driver sampled for it; the tracker's committed
+             count the distinct transactions of the Batches, none committed
+             twice; no mempool above its capacity; a series row an epoch
+             with the controller's B and a gate.  The proposals differ in
+             size, so each epoch's trees have leaves of many lengths: the
+             backend builds and walks them one batch a leaf length.  (b) the
+             controller x
+             crash cell (``net/scenarios.run_cell`` of passive x uniform x
+             one_restart x swing_adaptive, N=4, ten epochs, seed 2), then
+             on the port's ``MockBackend``: the same ``fingerprint()`` (the
+             B trace rides input-borne through the restart's WAL replay)
+             and row.  Logged: seconds per epoch, committed tx/s (wall),
+             p50/p99 commit latency (epochs), dispatches, device seconds by
+             kind and the host split; all five epoch kernels and the three
+             plane kernels (one launch a shard length or leaf length)
+             launched, then each against its plain version at the phase's
+             mean and widest launches, the SHA-256 kernels also at the
+             proof walks' shortest and longest leaves, and the plane kernels
+             timed at the phase's mean widths.  It runs after the recovery
+             phase.
+             ``--traffic-only`` builds and runs this phase alone.
    bench   — the port's kernel bench (``hbbft_tpu_torch.tools.kernel_bench``)
              at its default widths: M muls/s of both field arms and the RNS
              chain, TFLOP/s of the FMA probe.
              Kernel launch counts are zeroed just before each of phases 3,
              limb arm (in the child), sig path, 4, coin epoch, the era
-             change, object, dynamic, recovery and bench, and read just
-             after; every
+             change, object, dynamic, recovery, traffic and bench, and
+             read just after; every
              kernel of the path must have launched.
 5. a ``{"kernels": [...]}`` line, one row per kernel: launches on its own
    path (epoch, limb arm or bench; the epoch kernels also carry their
@@ -169,7 +201,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``object_launches``, and each epoch kernel that phase's mean and widest
    launch, ``object_mean_lanes`` and ``object_widest_lanes``; the same for
    the dynamic phase, ``dynamic_launches``, ``dynamic_mean_lanes`` and
-   ``dynamic_widest_lanes``, and the recovery phase, ``recovery_*``; the plane's
+   ``dynamic_widest_lanes``, the recovery phase, ``recovery_*``, and the
+   traffic phase, ``traffic_*``, with the plane kernels' time at the traffic
+   epochs' widths, ``traffic_ms`` beside ``traffic_plain_ms``; the plane's
    kernels are held at the epoch's
    own shapes first: a whole tree build, the N² proof walk with corrupted
    roots and leaf), largest difference from the plain
@@ -282,13 +316,14 @@ COIN_ROUNDS = 1
 #: host golden checks of the sig path: signature shares and instances sampled
 SIGN_SAMPLES = 100
 COMBINE_SAMPLES = 3
-#: the era phase's N: 24 (f=7).  Cut from the repo's N=100, whose era
+#: the era phase's N: 16 (f=5).  Cut from the repo's N=100, whose era
 #: change is ~30x the work of N=32's: 3,306 s on an H100 80GB HBM3 at 700 W,
 #: 2,636 s of it host hash-to-G2 (PERF.md §5), far more than the smoke's
 #: time limit; then from N=32 (the reference's n32_churn window step) to 24
-#: (~0.4x the hashes) to make room for the recovery phase on a slow host;
-#: ``--era-n`` sets it.
-ERA_N = 24
+#: (~0.4x the hashes) to make room for the recovery phase on a slow host,
+#: and to 16 for the traffic phase (a whole smoke took ~1,210 s on a slow
+#: host); ``--era-n`` sets it.
+ERA_N = 16
 #: g1_lincomb's terms held against a pure host fold of g1_mul
 LINCOMB_SAMPLE = 64
 #: the object runtime's shapes (N, f, epochs), both cut from BASELINE's N=100,
@@ -655,69 +690,15 @@ def check_rs_plane_kernels(dev, rng, errs: dict) -> None:
              f"(a decode matrix, {RS_M} random erasures)")
 
 
-def rs_plane_rows(dev, rng, errs: dict, launches: dict, lanes: dict, n: int = N) -> list:
-    """The plane's kernels at the epoch's shapes, read from its launches:
-    the GF product at its mean width (n encodes of one shard length: the
-    columns are n · shard length), a whole tree build (every tagged-hash
-    shape of the epoch) and the proof walk over the epoch's N² proofs with
-    corrupted roots and a corrupted leaf (against the plain version and the
-    host's native walk); then each timed at the path's mean width beside
-    the plain version and the bound (``roofline``'s integer term:
-    SHA_OPS a compression, ``gf_ops`` an output bit)."""
+def check_proof_walk(dev, rng, errs: dict, host_trees, n: int):
+    """``sha256_proofs`` over the N² proofs of ``host_trees`` with four
+    corrupted roots and a corrupted leaf, against its plain version and the
+    host's native walk; returns the packed proofs and the kernel's operands."""
     import numpy as np
     import torch
 
-    from hbbft_tpu_torch.crypto.erasure import RSCodec
-    from hbbft_tpu_torch.crypto.merkle import MerkleTree, PackedProofs, _depth
-    from hbbft_tpu_torch.ops import gf256 as G, sha256 as S
-
-    nrs = np.random.default_rng(rng.getrandbits(32))
-    mean = {k: max(1, lanes[k] // max(1, launches[k])) for k in RS_KERNELS}
-    cols = mean["gf256_matmul"]
-    shard_len = max(1, cols // n)
-    f = (n - 1) // 3
-    k, m = n - 2 * f, 2 * f
-    rows = []
-
-    def row(name, source, replaces, fn, plain, width, nbytes, int_ops):
-        ms = time_ms(fn)
-        plain_ms = time_ms(plain, reps=3)
-        bound_ms, bound_by = roofline(nbytes, 0.0, int_ops=int_ops)
-        rows.append({
-            "name": name, "route": "cuda", "source": f"hbbft_tpu_torch/csrc/{source}",
-            "replaces": f"none (jnp graph: hbbft_tpu/ops/{replaces})",
-            "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "path": "epoch", "lanes": width,
-        })
-
-    codec = RSCodec(k, m)
-    x_np = nrs.integers(0, 256, size=(k, cols), dtype=np.uint8)
-    check_gf(dev, errs, codec.encode_matrix, x_np, f"(the epoch's mean width, {cols} columns)")
-    words = torch.as_tensor(G.pack_gf_matrix(codec.encode_matrix), device=dev)
-    x = torch.as_tensor(x_np, device=dev)
-    # bytes: the m x k GF matrix, the input and the output (the packed bit
-    # rows are the kernel's form of the matrix, not the function's input)
-    row("gf256_matmul", "gf256.cu", "gf256.py:76 gf256_matmul",
-        lambda: G.gf256_matmul(words, x), lambda: G.gf256_matmul_plain(words, x),
-        cols, m * k + x.numel() + m * cols, 8 * m * cols * gf_ops(k))
-
-    leaves = torch.as_tensor(nrs.integers(0, 256, size=(n, n, shard_len), dtype=np.uint8),
-                             device=dev)
-    check_tagged(dev, rng, errs, n * n, shard_len, 0, f"(the epoch's {n * n} leaves)")
-    host_trees = [MerkleTree([bytes(v) for v in t]) for t in leaves.cpu().numpy()]
-    for d, lvl in enumerate(S.tree_levels(leaves)):
-        got = lvl.cpu().numpy()
-        if any(got[t].tobytes() != b"".join(host_trees[t].levels[d]) for t in range(n)):
-            raise AssertionError(f"tree level {d} differs from the host MerkleTree")
-    log(f"tree_levels: {n} trees of {n} {shard_len}-byte leaves, every level equal to the "
-        f"host MerkleTree's")
-    n_tag = mean["sha256_tagged"]
-    check_tagged(dev, rng, errs, n_tag, 64, 1, f"(the epoch's mean width, {n_tag} node pairs)")
-    pairs = torch.as_tensor(nrs.integers(0, 256, size=(n_tag, 64), dtype=np.uint8), device=dev)
-    row("sha256_tagged", "sha256.cu", "sha256.py:179 tree_levels",
-        lambda: S.sha256_tagged(pairs, 1), lambda: S.sha256_tagged_plain(pairs, 1),
-        n_tag, n_tag * (64 + 32), n_tag * S.compressions(64) * SHA_OPS)
+    from hbbft_tpu_torch.crypto.merkle import PackedProofs
+    from hbbft_tpu_torch.ops import sha256 as S
 
     packed = PackedProofs.from_trees(host_trees, n, device=True)
     roots = np.array(packed.roots, copy=True)
@@ -737,11 +718,88 @@ def rs_plane_rows(dev, rng, errs: dict, launches: dict, lanes: dict, n: int = N)
         raise AssertionError("sha256_proofs disagrees with the host proof walk")
     log(f"sha256_proofs: {len(packed)} verdicts equal the host's native walk; the {len(bad)} "
         f"corrupted proofs (4 roots, 1 leaf) rejected")
-    p, depth = len(packed), _depth(n)
+    return packed, args
+
+
+def rs_plane_rows(dev, rng, errs: dict, launches: dict, lanes: dict, n: int = N,
+                  widest=None, leaf_lengths=(), path: str = "epoch") -> list:
+    """The plane's kernels at a path's shapes, read from its launches: the
+    GF product at its mean and widest launch (``widest``, when given), a
+    whole tree build at the shortest and longest leaf length the path's
+    proof walks had (``leaf_lengths``; by default the epoch's one shard
+    length, its mean GF width over n), the tagged hash at its mean launch
+    width of node pairs and the proof walk over the N² proofs of n trees of
+    the longest leaves with corrupted roots and a corrupted leaf (against
+    the plain version and the host's native walk); then each timed at the
+    path's mean launch width (the proof walk over the first of those
+    proofs) beside the plain version and the bound (``roofline``'s integer
+    term: SHA_OPS a compression, ``gf_ops`` an output bit)."""
+    import numpy as np
+    import torch
+
+    from hbbft_tpu_torch.crypto.erasure import RSCodec
+    from hbbft_tpu_torch.crypto.merkle import MerkleTree, _depth
+    from hbbft_tpu_torch.ops import gf256 as G, sha256 as S
+
+    nrs = np.random.default_rng(rng.getrandbits(32))
+    mean = {k: max(1, lanes[k] // max(1, launches[k])) for k in RS_KERNELS}
+    cols = mean["gf256_matmul"]
+    lengths = sorted({min(leaf_lengths), max(leaf_lengths)}) if leaf_lengths \
+        else [max(1, cols // n)]
+    f = (n - 1) // 3
+    k, m = n - 2 * f, 2 * f
+    rows = []
+
+    def row(name, source, replaces, fn, plain, width, nbytes, int_ops):
+        ms = time_ms(fn)
+        plain_ms = time_ms(plain, reps=3)
+        bound_ms, bound_by = roofline(nbytes, 0.0, int_ops=int_ops)
+        rows.append({
+            "name": name, "route": "cuda", "source": f"hbbft_tpu_torch/csrc/{source}",
+            "replaces": f"none (jnp graph: hbbft_tpu/ops/{replaces})",
+            "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "path": path, "lanes": width,
+        })
+
+    codec = RSCodec(k, m)
+    for c in sorted({cols, (widest or {}).get("gf256_matmul", cols)}):
+        check_gf(dev, errs, codec.encode_matrix, nrs.integers(0, 256, size=(k, c), dtype=np.uint8),
+                 f"(the {path}'s {'mean' if c == cols else 'widest'} width, {c} columns)")
+    words = torch.as_tensor(G.pack_gf_matrix(codec.encode_matrix), device=dev)
+    x = torch.as_tensor(nrs.integers(0, 256, size=(k, cols), dtype=np.uint8), device=dev)
+    # bytes: the m x k GF matrix, the input and the output (the packed bit
+    # rows are the kernel's form of the matrix, not the function's input)
+    row("gf256_matmul", "gf256.cu", "gf256.py:76 gf256_matmul",
+        lambda: G.gf256_matmul(words, x), lambda: G.gf256_matmul_plain(words, x),
+        cols, m * k + x.numel() + m * cols, 8 * m * cols * gf_ops(k))
+
+    for length in lengths:
+        leaves = torch.as_tensor(nrs.integers(0, 256, size=(n, n, length), dtype=np.uint8),
+                                 device=dev)
+        check_tagged(dev, rng, errs, n * n, length, 0, f"(the {path}'s {n * n} leaves)")
+        host_trees = [MerkleTree([bytes(v) for v in t]) for t in leaves.cpu().numpy()]
+        for d, lvl in enumerate(S.tree_levels(leaves)):
+            got = lvl.cpu().numpy()
+            if any(got[t].tobytes() != b"".join(host_trees[t].levels[d]) for t in range(n)):
+                raise AssertionError(f"tree level {d} differs from the host MerkleTree")
+        log(f"tree_levels: {n} trees of {n} {length}-byte leaves, every level equal to the "
+            f"host MerkleTree's")
+    n_tag = mean["sha256_tagged"]
+    check_tagged(dev, rng, errs, n_tag, 64, 1, f"(the {path}'s mean width, {n_tag} node pairs)")
+    pairs = torch.as_tensor(nrs.integers(0, 256, size=(n_tag, 64), dtype=np.uint8), device=dev)
+    row("sha256_tagged", "sha256.cu", "sha256.py:179 tree_levels",
+        lambda: S.sha256_tagged(pairs, 1), lambda: S.sha256_tagged_plain(pairs, 1),
+        n_tag, n_tag * (64 + 32), n_tag * S.compressions(64) * SHA_OPS)
+
+    hi = lengths[-1]
+    packed, args = check_proof_walk(dev, rng, errs, host_trees, n)
+    p, depth = min(len(packed), mean["sha256_proofs"]), _depth(n)
+    walk = [a[:p] for a in args]
     row("sha256_proofs", "sha256.cu", "sha256.py:213 verify_proofs",
-        lambda: S.sha256_proofs(*args), lambda: S.sha256_proofs_plain(*args),
-        p, p * (shard_len + 32 * depth + 4 + 32 + 1),
-        p * (S.compressions(shard_len) + 2 * depth) * SHA_OPS)
+        lambda: S.sha256_proofs(*walk), lambda: S.sha256_proofs_plain(*walk),
+        p, p * (hi + 32 * depth + 4 + 32 + 1),
+        p * (S.compressions(hi) + 2 * depth) * SHA_OPS)
     return rows
 
 
@@ -1706,8 +1764,10 @@ DYNAMIC_SEED = 12
 DYNAMIC_BATCH = 100
 #: (N, f, churn): BASELINE config 1's shape with validator 3 voted out and
 #: back in, then a cut of configs 4 and 5 (N=100, N=256) in steady state
-#: (one batch commits every node's transactions)
-DYNAMIC_SHAPES = ((4, 1, True), (16, 5, False))
+#: (one batch commits every node's transactions); N=10 since the traffic
+#: phase came (N=16 before): a whole smoke with it took ~1,210 s on a slow
+#: host, past the time limit
+DYNAMIC_SHAPES = ((4, 1, True), (10, 3, False))
 #: the node the churn run votes out and back in
 DYNAMIC_CHURN_NODE = 3
 #: N of the array engine's era change under each DKG arm (f=0: the per-node
@@ -2292,6 +2352,218 @@ def phase_recovery(card: str, make_backend=None) -> dict:
     return res
 
 
+#: the traffic phase.  (a) the reference bench's qhb_traffic N=100 point
+#: (bench.py's ``n100`` cell) with the adaptive batch controller in the
+#: loop: ``ArrayHoneyBadgerNet(range(N), seed=0, dynamic=True)``, an
+#: open-loop Poisson source at TRAFFIC_LOAD x N·B transactions an epoch
+#: from a ZipfPopulation(TRAFFIC_CLIENTS, 1.1) of fixed TRAFFIC_TX_BYTES-byte
+#: payloads, the driver's rng ``random.Random(TRAFFIC_RNG)``, B =
+#: TRAFFIC_B, mempools of 2·N·B, each client submitting to one node, an
+#: ``AdaptiveBatchController(SLO(p99_epochs=TRAFFIC_P99), initial_b=B)`` and a
+#: MetricsLog on the engine, TRAFFIC_EPOCHS epochs as in the bench row
+TRAFFIC_B = 128
+TRAFFIC_LOAD = 1.0
+TRAFFIC_CLIENTS = 10_000
+TRAFFIC_TX_BYTES = 32
+TRAFFIC_RNG = 1234
+TRAFFIC_P99 = 4.0
+TRAFFIC_EPOCHS = 2
+#: (b) the controller x crash cell of the reference's
+#: test_control.py::test_soak_cell_with_controller_survives_crash_restart:
+#: SenderQueue ⊃ QueueingHoneyBadger at N=4 under the 10x-swing trace with
+#: the controller's B riding ("batch_size", B) inputs through a crash, a
+#: restart and its WAL replay
+TRAFFIC_CELL = dict(attack="passive", schedule="uniform", churn="none", crash="one_restart",
+                    traffic="swing_adaptive", n=4, epochs=10, seed=2)
+
+
+def run_traffic_net(backend, n: int, epochs: int, what: str, b: int = TRAFFIC_B) -> dict:
+    """Client traffic through the port's ``ArrayTrafficDriver`` on
+    ``backend`` at the phase's (a) settings, B = ``b``: every node must output the
+    same Batch, each node's contribution the proposal the driver sampled
+    for it; every committed transaction distinct (the tracker's count, none
+    committed twice); no mempool above its capacity; a series row an epoch
+    carrying the controller's B and the epoch's gate."""
+    import torch
+
+    from hbbft_tpu_torch.control import SLO, AdaptiveBatchController
+    from hbbft_tpu_torch.engine.array_engine import ArrayHoneyBadgerNet
+    from hbbft_tpu_torch.obs.timeseries import MetricsLog
+    from hbbft_tpu_torch.traffic import (ArrayTrafficDriver, OpenLoopSource, PayloadSizes,
+                                         ZipfPopulation)
+    from hbbft_tpu_torch.utils import canonical
+
+    on_card = getattr(backend, "device", None) is not None and backend.device.type == "cuda"
+    t = time.perf_counter()
+    net = ArrayHoneyBadgerNet(range(n), backend=backend, seed=0, dynamic=True)
+    setup = time.perf_counter() - t
+    cap = 2 * n * b
+    ctrl = AdaptiveBatchController(SLO(p99_epochs=TRAFFIC_P99), initial_b=b)
+    src = OpenLoopSource(TRAFFIC_LOAD * n * b, ZipfPopulation(TRAFFIC_CLIENTS, 1.1),
+                         PayloadSizes("fixed", TRAFFIC_TX_BYTES))
+    drv = ArrayTrafficDriver(net, src, random.Random(TRAFFIC_RNG), batch_size=b,
+                             mempool_capacity=cap, fanout="one", controller=ctrl)
+    net.metrics_log = MetricsLog()
+    proposals, batches = [], []
+    host = {"admit_and_sample": 0.0, "commit": 0.0}
+
+    def timed(key, fn, out=None):
+        def call(*a):
+            t0 = time.perf_counter()
+            r = fn(*a)
+            host[key] += time.perf_counter() - t0
+            if out is not None:
+                out.append(r)
+            return r
+        return call
+
+    # the engine's hooks, as the driver installed them: its contribution
+    # source (admission and sampling, kept to compare with the Batch) and
+    # its commit listeners, timed apart from the epoch; a listener of our
+    # own keeps every node's Batch
+    net.contribution_source = timed("admit_and_sample", net.contribution_source, proposals)
+    net.batch_listeners = ([timed("commit", cb) for cb in net.batch_listeners]
+                           + [batches.append])
+    out = {"setup_seconds": setup, "epochs": []}
+    for e in range(epochs):
+        c0 = backend.counters.snapshot()
+        h0 = dict(host)
+        t = time.perf_counter()
+        net.run_epochs(1)
+        if on_card:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        c1 = backend.counters.snapshot()
+        got, sampled = batches[-1], proposals[-1]
+        first = got[net.ids[0]]
+        if sorted(got) != list(net.ids) or any(x != first for x in got.values()):
+            raise AssertionError(f"{what}: the nodes output different Batches (epoch {e})")
+        if first.contributions != sampled:
+            raise AssertionError(f"{what}: epoch {e}'s Batch does not hold the proposals the "
+                                 "driver sampled")
+        rep = dataclasses.asdict(net.reports[-1])
+        out["epochs"].append({
+            "seconds": secs, "committed": drv.committed_per_epoch[-1],
+            "proposal_bytes": sum(len(v) for v in sampled.values()),
+            "host_seconds": {k: host[k] - h0[k] for k in host},
+            "engine_host_seconds": c1["host_seconds"] - c0["host_seconds"],
+            "device_dispatches": c1["device_dispatches"] - c0["device_dispatches"],
+            "device_seconds": _counter_delta(c0, c1, "device_seconds_"),
+            "host_buckets": _counter_delta(c0, c1, "host_bucket_"),
+            "phase_seconds": rep["phase_seconds"],
+            "batch": hashlib.sha256(repr((first.epoch, sorted(first.contributions.items())))
+                                    .encode()).hexdigest()})
+    txs = [tx for got in batches for blob in got[net.ids[0]].contributions.values()
+           for tx in canonical.decode(bytes(blob))]
+    tracker = drv.tracker
+    if not (len(txs) == len(set(txs)) == tracker.committed > 0
+            and tracker.committed_duplicates == 0):
+        raise AssertionError(f"{what}: {len(txs)} committed transactions, {len(set(txs))} "
+                             f"distinct, the tracker's {tracker.committed} "
+                             f"({tracker.committed_duplicates} duplicates)")
+    peak = max(mp.peak_depth for mp in drv.mempools)
+    if peak > cap:
+        raise AssertionError(f"{what}: a mempool held {peak} transactions, above {cap}")
+    rows = net.metrics_log.rows_list()
+    if ([r["epoch"] for r in rows] != list(range(epochs))
+            or [r.get("b") for r in rows] != ctrl.b_trace()[-epochs:]
+            or not all((r.get("gate") or {}).get("phase") for r in rows)):
+        raise AssertionError(f"{what}: the series {rows} lacks an epoch's row, B or gate")
+    rep = drv.report()
+    lat = tracker.latency_summary()
+    wall = sum(ep["seconds"] for ep in out["epochs"])
+    out.update({
+        "committed": tracker.committed, "tx_per_s": tracker.committed / wall,
+        "latency": lat, "b_trace": ctrl.b_trace(), "mempool_peak_depth": peak,
+        "mempool_capacity": cap, "dropped": rep["mempool_dropped"],
+        "state": rep["status"]["state"], "series": rows,
+        "digest": hashlib.sha256("".join(ep["batch"] for ep in out["epochs"]).encode())
+        .hexdigest()})
+    return out
+
+
+def run_traffic_cell(backend) -> dict:
+    """The controller x crash cell (b) through ``net/scenarios.run_cell``
+    on ``backend``: its row, fingerprint and B trace, with seconds,
+    dispatches and the host split."""
+    import torch
+
+    from hbbft_tpu_torch.net.scenarios import Cell, run_cell
+
+    on_card = getattr(backend, "device", None) is not None and backend.device.type == "cuda"
+    cell = Cell(**TRAFFIC_CELL)
+    c0 = backend.counters.snapshot()
+    split = HostSplit(backend)
+    t = time.perf_counter()
+    with split:
+        r = run_cell(cell, backend=backend)
+        if on_card:
+            torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    c1 = backend.counters.snapshot()
+    if not (r.ok and r.crashes == 1 and r.restarts == 1 and r.tx_committed > 0):
+        raise AssertionError(f"cell {cell.cell_id()}: {r.row()}")
+    return {"row": r.row(), "fingerprint": r.fingerprint(),
+            "b_trace": [row.get("b") for row in r.series], "seconds": secs,
+            "device_dispatches": c1["device_dispatches"] - c0["device_dispatches"],
+            "device_seconds": _counter_delta(c0, c1, "device_seconds_"),
+            "host_seconds": split.split(secs),
+            "host_calls": {k: v for k, v in split.calls.items() if v}}
+
+
+def phase_traffic(card: str, make_backend=None, n: int = N,
+                  epochs: int = TRAFFIC_EPOCHS, b: int = TRAFFIC_B) -> dict:
+    """Client traffic and the adaptive batch controller on ``make_backend()``
+    (default ``TorchBackend()``): (a) the N-node traffic epochs
+    (``run_traffic_net``); (b) the controller x crash cell, then the same
+    cell on the port's ``MockBackend``: the same ``fingerprint()`` (batch
+    digest, fault log, tracker fingerprint with the B trace, crash trace)
+    and row."""
+    from hbbft_tpu_torch.crypto.backend import MockBackend
+    from hbbft_tpu_torch.ops.backend import TorchBackend
+
+    make_backend = make_backend or TorchBackend
+    res: dict = {}
+    what = f"traffic N={n}, f={(n - 1) // 3}, B={b}"
+    t = time.perf_counter()
+    a = run_traffic_net(make_backend(), n, epochs, what, b)
+    res["net"] = dict(a, seconds=time.perf_counter() - t)
+    lat = a["latency"]
+    log(f"{what} [{card}]: every node output the same Batch of the sampled proposals, "
+        f"{a['committed']} transactions committed once each, mempool peak "
+        f"{a['mempool_peak_depth']} of {a['mempool_capacity']}, B trace "
+        f"{json.dumps(a['b_trace'])}, series gates "
+        f"{json.dumps([r['gate']['phase'] for r in a['series']])}")
+    log(f"{what} [{card}]: seconds per epoch {json.dumps([e['seconds'] for e in a['epochs']])}"
+        f" (setup {a['setup_seconds']:.2f}), committed tx/s (wall) {a['tx_per_s']:.1f}, "
+        f"commit latency p50 {lat.get('p50')} p99 {lat.get('p99')} epochs, proposal bytes "
+        f"{json.dumps([e['proposal_bytes'] for e in a['epochs']])}, device_dispatches "
+        f"{json.dumps([e['device_dispatches'] for e in a['epochs']])}")
+    for e, ep in enumerate(a["epochs"]):
+        log(f"{what} epoch {e} [{card}]: host {json.dumps(ep['host_seconds'])}, engine host "
+            f"{ep['engine_host_seconds']:.3f} s, phases {json.dumps(ep['phase_seconds'])}, "
+            f"device seconds {json.dumps(ep['device_seconds'])}, host buckets "
+            f"{json.dumps(ep['host_buckets'])}")
+
+    t = time.perf_counter()
+    real = run_traffic_cell(make_backend())
+    mock = run_traffic_cell(MockBackend())
+    for key in ("fingerprint", "row", "b_trace"):
+        if real[key] != mock[key]:
+            raise AssertionError(f"traffic cell: {key} {real[key]} on the card, {mock[key]} "
+                                 "on MockBackend")
+    res["cell"] = {"torch": real, "mock": mock, "seconds": time.perf_counter() - t}
+    row = real["row"]
+    log(f"traffic cell {row['cell']} [{card}]: TorchBackend equals MockBackend (fingerprint "
+        f"{real['fingerprint'][:16]}, ok {row['ok']}, crashes {row['crashes']}, restarts "
+        f"{row['restarts']}, {row['tx_committed']} transactions, p99 {row['commit_p99']} "
+        f"epochs, B trace {json.dumps(real['b_trace'])}); {real['seconds']:.3f} s (MockBackend "
+        f"{mock['seconds']:.3f}), device_dispatches {real['device_dispatches']}; device seconds "
+        f"{json.dumps(real['device_seconds'])}; host seconds "
+        f"{json.dumps(real['host_seconds'])} over calls {json.dumps(real['host_calls'])}")
+    return res
+
+
 def same(name: str, got, want) -> float:
     """max |kernel - plain|; raises unless the two are equal value for value
     (whether every bit agrees too, the signs of zeros included, is logged)."""
@@ -2783,6 +3055,60 @@ def run_recovery(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
     return res
 
 
+def run_traffic(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
+    """The traffic phase on the card with the kernel launch counts zeroed
+    just before it and read just after (the five epoch kernels and the
+    three plane kernels must have launched), then the five epoch kernels
+    against their plain versions at the phase's mean and widest launches,
+    and the plane kernels there and at its leaf lengths, timed at its mean
+    widths."""
+    import torch
+
+    from hbbft_tpu_torch.ops import fq_rns_cuda as K, gf256 as G, sha256 as S
+
+    reset_launches()
+    t = time.perf_counter()
+    res = phase_traffic(card)
+    torch.cuda.synchronize()
+    secs["traffic_phase"] = time.perf_counter() - t
+    res["all_launches"] = _launch_counts(kernel_fns())
+    res["launches"], res["lanes"] = read_launches(
+        "client traffic (the N=100 traffic epochs with the controller, the controller x crash "
+        "cell)", EPOCH_KERNELS + RS_KERNELS)
+    res["widest"] = {**widest_launches(), "gf256_matmul": G.gf256_matmul.widest,
+                     "sha256_tagged": S.sha256_tagged.widest,
+                     "sha256_proofs": S.sha256_proofs.widest}
+    res["leaf_lengths"] = sorted(S.sha256_proofs.leaf_lengths)
+    res["launch_widths_log2"] = {"fq_rns_mul": dict(sorted(K.mul.widths.items()))}
+    log(f"traffic [{card}]: widest launches {json.dumps(res['widest'])}; the proof walks' "
+        f"{len(res['leaf_lengths'])} leaf lengths {json.dumps(res['leaf_lengths'])}; "
+        f"fq_rns_mul launch widths (key b: [2^(b-1), 2^b) lanes -> launches) "
+        f"{json.dumps(res['launch_widths_log2']['fq_rns_mul'])}")
+    t = time.perf_counter()
+    res["checked_widths"] = check_path_widths(
+        dev, rng, errs, res["launches"], res["lanes"], res["widest"], "traffic",
+        names=EPOCH_KERNELS)
+    res["plane_rows"] = rs_plane_rows(dev, rng, errs, res["launches"], res["lanes"],
+                                      widest=res["widest"], leaf_lengths=res["leaf_lengths"],
+                                      path="traffic")
+    secs["traffic_checks"] = time.perf_counter() - t
+    return res
+
+
+def log_traffic(res: dict, card: str) -> None:
+    a, cell = res["net"], res["cell"]
+    log(f"traffic (a) N={N} [{card}]: {a['seconds']:.3f} s, seconds per epoch "
+        f"{json.dumps([e['seconds'] for e in a['epochs']])}, committed tx/s (wall) "
+        f"{a['tx_per_s']:.1f}, p50 {a['latency'].get('p50')} p99 {a['latency'].get('p99')} "
+        f"epochs; (b) the controller x crash cell {cell['seconds']:.3f} s, "
+        f"{cell['torch']['device_dispatches']} dispatches on the card")
+    log(f"traffic launches [{card}]: {json.dumps(res['launches'])}; lanes "
+        f"{json.dumps(res['lanes'])}; widest {json.dumps(res['widest'])}; the plane kernels "
+        f"at the traffic epochs' widths: " + json.dumps(
+            {r["name"]: {"lanes": r["lanes"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                         "bound_ms": r["bound_ms"]} for r in res["plane_rows"]}))
+
+
 def log_recovery(res: dict, card: str) -> None:
     sim, crash, cell = res["simulation"], res["crash"]["torch"], res["scenario"]["torch"]
     log(f"recovery (a) simulation [{card}]: {sim['seconds']:.3f} s for the three runs, the "
@@ -2849,6 +3175,10 @@ def main(argv=None) -> int:
     only.add_argument("--recovery-only", action="store_true",
                       help="build the kernels, then run the recovery phase (simulation "
                            "driver, crash axis, scenario cell) and its checks alone")
+    only.add_argument("--traffic-only", action="store_true",
+                      help="build the kernels, then run the traffic phase (N=100 traffic "
+                           "epochs with the controller, the controller x crash cell) and its "
+                           "checks alone")
     # the limb arm's child process (phase_limb_arm starts it)
     ap.add_argument("--limb-arm", nargs=2, metavar=("IN", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -2898,7 +3228,8 @@ def main(argv=None) -> int:
             (args.era_only, "era", run_era, log_era),
             (args.object_only, "object_runtime", run_object, log_object),
             (args.dynamic_only, "dynamic", run_dynamic, log_dynamic),
-            (args.recovery_only, "recovery", run_recovery, log_recovery)) if flag]
+            (args.recovery_only, "recovery", run_recovery, log_recovery),
+            (args.traffic_only, "traffic", run_traffic, log_traffic)) if flag]
         if alone:  # one phase and its checks, after the build
             (name, run, log_fn), = alone
             res = run(args, dev, rng, {"fq_rns_mul": 0.0, "fq_rns_pow": 0.0}, card, secs)
@@ -3005,6 +3336,7 @@ def main(argv=None) -> int:
         object_res = run_object(args, dev, rng, errs, card, secs)
         dynamic_res = run_dynamic(args, dev, rng, errs, card, secs)
         recovery_res = run_recovery(args, dev, rng, errs, card, secs)
+        traffic_res = run_traffic(args, dev, rng, errs, card, secs)
 
         reset_launches()
         t = time.perf_counter()
@@ -3029,11 +3361,17 @@ def main(argv=None) -> int:
                 r["object_mean_lanes"] = (object_res["lanes"][r["name"]]
                                           / object_res["launches"][r["name"]])
                 r["object_widest_lanes"] = object_res["widest"][r["name"]]
-            for tag, res in (("dynamic", dynamic_res), ("recovery", recovery_res)):
+            for tag, res in (("dynamic", dynamic_res), ("recovery", recovery_res),
+                             ("traffic", traffic_res)):
                 r[f"{tag}_launches"] = res["all_launches"][r["name"]]
                 if r["name"] in res["widest"]:
                     r[f"{tag}_mean_lanes"] = res["lanes"][r["name"]] / res["launches"][r["name"]]
                     r[f"{tag}_widest_lanes"] = res["widest"][r["name"]]
+        for r in rows:  # the plane kernels timed at the traffic epochs' widths too
+            for pr in traffic_res["plane_rows"]:
+                if pr["name"] == r["name"]:
+                    r.update(traffic_lanes_timed=pr["lanes"], traffic_ms=pr["ms"],
+                             traffic_plain_ms=pr["plain_ms"], traffic_bound_ms=pr["bound_ms"])
         secs["timing"] = time.perf_counter() - t
         prof = None
         if args.profile:
@@ -3052,6 +3390,7 @@ def main(argv=None) -> int:
         "stacked_arm": stacked_res, "limb_arm": limb_res, "sig_path": sig_res,
         "epoch": epoch_res, "rs_kill_switch": kill_res, "coin_epoch": coin_res, "era": era_res,
         "object_runtime": object_res, "dynamic": dynamic_res, "recovery": recovery_res,
+        "traffic": traffic_res,
         "bench": bench_res, "phase_seconds": secs,
         "path_device_dispatches": c.device_dispatches, "path_pairing_checks": c.pairing_checks,
         "path_rlc_groups": c.rlc_groups, "kernels": rows, "launch_widths_log2": widths,
@@ -3083,6 +3422,7 @@ def main(argv=None) -> int:
     log_object(object_res, card)
     log_dynamic(dynamic_res, card)
     log_recovery(recovery_res, card)
+    log_traffic(traffic_res, card)
     log(f"phase seconds [{card}]: {json.dumps(secs)}")
     log(f"path device_dispatches={c.device_dispatches} pairing_checks={c.pairing_checks} "
         f"rlc_groups={c.rlc_groups} peak_memory_bytes={result['peak_memory_bytes']} [{card}]")

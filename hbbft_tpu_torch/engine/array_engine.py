@@ -57,13 +57,14 @@ import os
 import random
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from hbbft_tpu_torch.core.network_info import NetworkInfo
 from hbbft_tpu_torch.crypto.backend import CryptoBackend
 from hbbft_tpu_torch.crypto.erasure import rs_codec
 from hbbft_tpu_torch.crypto.merkle import MerkleTree, PackedProofs, _depth, validate_proofs
 from hbbft_tpu_torch.engine.dkg_batch import batched_encrypt, batched_era_dkg
+from hbbft_tpu_torch.obs import critpath as _critpath
 from hbbft_tpu_torch.ops.pipeline import device_rs_enabled, hostpipe_enabled
 from hbbft_tpu_torch.protocols.honey_badger import Batch
 from hbbft_tpu_torch.protocols.sync_key_gen import SyncKeyGen
@@ -133,7 +134,31 @@ class ArrayHoneyBadgerNet:
     #: spans the backend adds.  Environment, not state: checkpoint() drops
     #: it (utils/snapshot.py) and a restored engine falls back to None.
     tracer = None
-    _SNAPSHOT_ENV_ATTRS = ("tracer",)
+    # class-level fallbacks for the other environment attributes (not
+    # state: save_node drops everything in _SNAPSHOT_ENV_ATTRS and restore
+    # lands back on these defaults).  batch_listeners receive the per-node
+    # Batch map after every epoch (the traffic subsystem's delivery
+    # fan-out); contribution_source, when set, supplies run_epochs'
+    # contributions (epoch -> {node: bytes}) instead of the synthetic
+    # random payloads; batch_size_provider (zero-arg -> int) publishes the
+    # control plane's live batch size B: the adaptive controller
+    # (hbbft_tpu_torch/control/) installs it and the traffic driver's
+    # contribution sampling consults it per epoch.  A restored engine falls
+    # back to these defaults and the embedder re-attaches its environment.
+    batch_listeners: Sequence = ()
+    contribution_source = None
+    batch_size_provider = None
+    #: per-epoch series (obs/timeseries.MetricsLog): when attached, every
+    #: run_epoch appends a row (merged counter deltas, histogram windows,
+    #: live B, the epoch's phase-attributed gate)
+    metrics_log = None
+    _SNAPSHOT_ENV_ATTRS = (
+        "tracer",
+        "batch_listeners",
+        "contribution_source",
+        "batch_size_provider",
+        "metrics_log",
+    )
 
     def __init__(
         self,
@@ -174,6 +199,7 @@ class ArrayHoneyBadgerNet:
         #: round decides
         self.coin_rounds = coin_rounds
         self.tracer = tracer
+        self.batch_listeners: List = []
         self.epoch = 0
         self.era = 0
         self.counters = Counters()
@@ -195,6 +221,42 @@ class ArrayHoneyBadgerNet:
     def _count_msgs(self, rep: EpochReport, n_messages: int) -> None:
         rep.messages_delivered += n_messages
         self.counters.messages_delivered += n_messages
+
+    def _pack_proofs(
+        self, trees: List[MerkleTree], n: int
+    ) -> Optional[List[Tuple[List[int], PackedProofs]]]:
+        """The N² proofs of ``trees`` as packed batches, each with the
+        positions of its trees; None sends them to the per-proof objects.
+
+        For the device proof walk (no native-SHA gate, but rectangles
+        only) the trees are packed by leaf length: proposals of different
+        sizes give shards of different lengths.  The host's C kernel keeps
+        the one batch or none, and so does the kill-switch arm."""
+        if not (self.backend.device_rs_plane and device_rs_enabled()):
+            packed = PackedProofs.from_trees(trees, n)
+            return None if packed is None else [(list(range(len(trees))), packed)]
+        groups: Dict[int, List[int]] = {}
+        for t, tree in enumerate(trees):
+            groups.setdefault(len(tree.leaves[0]), []).append(t)
+        packs = []
+        for rows in groups.values():
+            packed = PackedProofs.from_trees([trees[t] for t in rows], n, device=True)
+            if packed is None:
+                return None
+            packs.append((rows, packed))
+        return packs
+
+    def _walk_packs(
+        self, packs: List[Tuple[List[int], PackedProofs]], n: int, reps: int
+    ) -> List[bool]:
+        """The backend's proof walk over each packed batch, ``reps`` times;
+        the verdicts in tree order, ``n`` a tree."""
+        ok: List[bool] = [False] * (n * sum(len(rows) for rows, _ in packs))
+        for rows, packed in packs:
+            got = self.backend.merkle_verify_batch(packed, reps=reps)
+            for j, t in enumerate(rows):
+                ok[t * n : (t + 1) * n] = got[j * n : (j + 1) * n]
+        return ok
 
     def _verify_batch(self, kind: str, items: list) -> List[bool]:
         """Batched backend verification with chunking (device-batch sized)."""
@@ -244,7 +306,33 @@ class ArrayHoneyBadgerNet:
         # bills counters.host_seconds (wall minus device-fetch-blocked)
         # and every phase below bills its named exclusive slice
         with self.backend.buckets.epoch():
-            return self._run_epoch(contributions)
+            out = self._run_epoch(contributions)
+        # delivery fan-out (traffic subsystem et al.): listeners observe
+        # the same per-node Batch map the caller receives.  Deliberately
+        # OUTSIDE the epoch region: listener work (commit bookkeeping,
+        # mempool drains) is not engine time and must not bill the
+        # attributed host_seconds total.
+        for cb in self.batch_listeners:
+            cb(out)
+        # per-epoch series row (obs/timeseries.py): after the listener
+        # fan-out so mempool/controller updates for this epoch are visible
+        if self.metrics_log is not None:
+            rep = self.reports[-1]
+            gate = _critpath.path_from_phase_seconds(
+                rep.epoch, rep.phase_seconds or {}, cranks=rep.rounds
+            )
+            self.metrics_log.snap(
+                rep.epoch,
+                counters=self.counters.merged_with(self.backend.counters),
+                tracer=self.tracer,
+                controller_b=(
+                    self.batch_size_provider()
+                    if self.batch_size_provider is not None
+                    else None
+                ),
+                gate=gate,
+            )
+        return out
 
     def _run_epoch(self, contributions: Dict[Any, bytes]) -> Dict[Any, Batch]:
         n, f = self.n, self.f
@@ -338,24 +426,18 @@ class ArrayHoneyBadgerNet:
         # tree levels feed the backend's proof walk directly (PackedProofs:
         # the device kernel on TorchBackend, the C kernel on the host).
         proofs: Optional[List] = None
-        packed: Optional[PackedProofs] = None
+        packs: Optional[List[Tuple[List[int], PackedProofs]]] = None
         with bk.region("rs_merkle"):
             if fast:
-                # device=True lifts the native-SHA gate when the packed
-                # batch is headed for the device proof walk instead of
-                # the C kernel — the kill-switch arm keeps the host choice
-                packed = PackedProofs.from_trees(
-                    [trees[p] for p in self.ids], n,
-                    device=self.backend.device_rs_plane and device_rs_enabled(),
-                )
-            if packed is None:
+                packs = self._pack_proofs([trees[p] for p in self.ids], n)
+            if packs is None:
                 proofs = [trees[p].proof(s) for p in self.ids for s in range(n)]
         n_proofs = n * n
 
         def _validate_all(reps: int) -> List[bool]:
-            if packed is not None:
-                return self.backend.merkle_verify_batch(packed, reps=reps)
-            return validate_proofs(proofs, n, reps=reps)
+            if packs is None:
+                return validate_proofs(proofs, n, reps=reps)
+            return self._walk_packs(packs, n, reps)
 
         # ------ round 1: validate own Value proof, send Echo ---------------
         # broadcast.py _handle_value → _validate_proof(own index): each
@@ -919,45 +1001,54 @@ class ArrayHoneyBadgerNet:
         payload_size: int = 128,
         churn_at: Optional[Sequence[int]] = None,
     ) -> List[Dict[Any, Batch]]:
-        """Run k epochs with synthetic per-node contributions; an
+        """Run k epochs with synthetic per-node contributions (or, when a
+        ``contribution_source`` is installed, the traffic subsystem's
+        sourcing hook, with whatever it supplies per epoch); an
         ``era_change()`` fires before each epoch index in ``churn_at``."""
         churn = set(churn_at or ())
         out = []
         for i in range(k):
             if i in churn:
                 self.era_change()
-            contribs = {
-                nid: self.rng.getrandbits(8 * payload_size).to_bytes(payload_size, "big")
-                for nid in self.ids
-            }
+            if self.contribution_source is not None:
+                contribs = self.contribution_source(self.epoch)
+            else:
+                contribs = {
+                    nid: self.rng.getrandbits(8 * payload_size).to_bytes(payload_size, "big")
+                    for nid in self.ids
+                }
             out.append(self.run_epoch(contribs))
         return out
 
 
 def _roots_batch(shard_lists: List[List[bytes]], reps: int) -> List[bytes]:
-    """Merkle roots of many shard vectors, built ``reps`` times each —
-    C batch kernel when available, python MerkleTree otherwise."""
+    """Merkle roots of many shard vectors, built ``reps`` times each — the
+    C batch kernel once a shape (proposals of different sizes give shards
+    of different lengths), python MerkleTree for a vector it cannot take."""
     import numpy as np
 
     from hbbft_tpu_torch import native
 
-    n_leaves = len(shard_lists[0])
-    leaf_len = len(shard_lists[0][0])
-    uniform = all(
-        len(sl) == n_leaves and all(len(s) == leaf_len for s in sl)
-        for sl in shard_lists
-    )
-    size = 1 << _depth(n_leaves)
-    if uniform and size <= 256 and leaf_len + 1 <= 4096:
+    out: List[Optional[bytes]] = [None] * len(shard_lists)
+    groups: Dict[Tuple[int, int], List[int]] = {}
+    for i, sl in enumerate(shard_lists):
+        lens = {len(s) for s in sl}
+        if len(lens) == 1:
+            groups.setdefault((len(sl), lens.pop()), []).append(i)
+    for (n_leaves, leaf_len), idxs in groups.items():
+        size = 1 << _depth(n_leaves)
+        if size > 256 or leaf_len + 1 > 4096:
+            continue
         leaves = np.frombuffer(
-            b"".join(b"".join(sl) for sl in shard_lists), dtype=np.uint8
-        ).reshape(len(shard_lists), n_leaves, leaf_len)
+            b"".join(b"".join(shard_lists[i]) for i in idxs), dtype=np.uint8
+        ).reshape(len(idxs), n_leaves, leaf_len)
         roots = native.merkle_root_batch(leaves, size, reps)
         if roots is not None:
-            return [roots[i].tobytes() for i in range(len(shard_lists))]
-    out = []
-    for sl in shard_lists:
-        for _ in range(reps):
-            tree = MerkleTree(sl)
-        out.append(tree.root_hash)
-    return out
+            for j, i in enumerate(idxs):
+                out[i] = roots[j].tobytes()
+    for i, sl in enumerate(shard_lists):
+        if out[i] is None:
+            for _ in range(reps):
+                tree = MerkleTree(sl)
+            out[i] = tree.root_hash
+    return out  # type: ignore[return-value]

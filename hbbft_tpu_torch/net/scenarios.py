@@ -29,9 +29,9 @@ seed reproduces the fault log and the batch digest bit-for-bit.
 A cell runs on ``TorchBackend()``, the card, unless the caller passes a
 backend (``MockBackend()`` for the protocol logic alone, or
 ``TorchBackend(device="cpu")``); it raises without a GPU rather than fall
-back to the CPU.  The reference's composed soak half (churn, crash and
-traffic axes in one multi-epoch cell: ``Cell``, ``run_cell``) comes with
-the port's ``traffic/``.
+back to the CPU.  So does a composed soak cell (:func:`run_cell`: the
+attack and schedule axes with churn, crash and traffic axes in one
+multi-epoch run).
 """
 
 from __future__ import annotations
@@ -59,6 +59,7 @@ from hbbft_tpu_torch.net.virtual_net import (
 )
 from hbbft_tpu_torch.obs import critpath as _critpath
 from hbbft_tpu_torch.obs.flight import FlightRecorder
+from hbbft_tpu_torch.obs.timeseries import MetricsLog, snap_net
 
 
 @dataclass(frozen=True)
@@ -510,3 +511,670 @@ def run_matrix(
                     )
                 )
     return out
+
+
+# ---------------------------------------------------------------------------
+# The composed gauntlet: a cell is the full
+# product attack × net-schedule × churn-schedule × crash-schedule ×
+# traffic-source, run as a multi-epoch soak over the object runtime —
+# SenderQueue-wrapped QueueingHoneyBadger on VirtualNet — so every axis
+# composes with the real wire protocol: era changes ride committed votes,
+# crashed nodes restore from utils/snapshot checkpoints and catch up
+# through the sender-queue window, and client load flows through the
+# traffic subsystem's mempools and lifecycle tracker.
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ChurnSpec:
+    """Era-change schedule: ``make(n, epochs)`` returns the epochs at
+    which every correct node votes the encryption-schedule flip (a
+    schedule change wins by strict majority and turns the era over
+    without a DKG — the cheapest real era change; the DKG-bearing
+    remove/add path is the dynamic protocols' own)."""
+
+    name: str
+    make: Callable[[int, int], Tuple[int, ...]]
+    description: str = ""
+
+
+@dataclass(frozen=True)
+class CrashSpec:
+    """Crash axis: ``make(n, epochs)`` returns a fresh CrashSchedule (or
+    None for the crash-free runtime)."""
+
+    name: str
+    make: Callable[[int, int], Optional["CrashSchedule"]]
+    description: str = ""
+
+
+@dataclass(frozen=True)
+class TrafficSpec:
+    """Traffic axis: open-loop Poisson client load at ``rate_frac`` of
+    the nominal per-epoch capacity (validators × batch_size); None runs
+    the soak load-free (QHB commits empty batches).  ``adaptive`` puts
+    the SLO-driven batch controller (hbbft_tpu_torch/control/) in the loop —
+    B updates ride ("batch_size", B) inputs so they are WAL-logged and
+    crash-restart replay stays bit-identical; ``trace`` names a
+    registered load trace (control/trace.py) modulating the rate."""
+
+    name: str
+    rate_frac: Optional[float] = None
+    description: str = ""
+    adaptive: bool = False
+    trace: Optional[str] = None
+
+
+_CHURN_LIST: Tuple[ChurnSpec, ...] = (
+    ChurnSpec("none", lambda n, epochs: (), description="single era"),
+    ChurnSpec(
+        "era_flip",
+        lambda n, epochs: tuple(
+            e for e in (epochs // 3, (2 * epochs) // 3) if 0 < e < epochs
+        ),
+        description="two era changes (encryption-schedule flip votes)",
+    ),
+)
+
+CHURNS: Dict[str, ChurnSpec] = {c.name: c for c in _CHURN_LIST}
+
+
+def _one_restart(n: int, epochs: int) -> "CrashSchedule":
+    from hbbft_tpu_torch.net.crash import CrashEvent, CrashSchedule
+
+    return CrashSchedule(
+        (
+            CrashEvent(
+                at_epoch=max(1, epochs // 3),
+                down_epochs=max(2, min(4, epochs // 6)),
+            ),
+        ),
+        recommit_epochs=3,
+    )
+
+
+def _two_restarts(n: int, epochs: int) -> "CrashSchedule":
+    from hbbft_tpu_torch.net.crash import CrashEvent, CrashSchedule
+
+    down = max(2, min(4, epochs // 6))
+    return CrashSchedule(
+        (
+            CrashEvent(at_epoch=max(1, epochs // 4), down_epochs=down),
+            CrashEvent(at_epoch=max(2, (3 * epochs) // 5), down_epochs=down),
+        ),
+        recommit_epochs=3,
+    )
+
+
+_CRASH_LIST: Tuple[CrashSpec, ...] = (
+    CrashSpec("none", lambda n, epochs: None, description="no crashes"),
+    CrashSpec(
+        "one_restart",
+        _one_restart,
+        description="highest-id honest node dies at epochs/3, restarts "
+        "after the net advances a few epochs",
+    ),
+    CrashSpec(
+        "two_restarts",
+        _two_restarts,
+        description="the same node dies and recovers twice",
+    ),
+)
+
+CRASHES: Dict[str, CrashSpec] = {c.name: c for c in _CRASH_LIST}
+
+_TRAFFIC_LIST: Tuple[TrafficSpec, ...] = (
+    TrafficSpec("none", None, description="load-free soak"),
+    TrafficSpec("half_x", 0.5, description="0.5x nominal open-loop load"),
+    TrafficSpec("one_x", 1.0, description="1x nominal open-loop load"),
+    TrafficSpec("two_x", 2.0, description="2x nominal (overload) load"),
+    TrafficSpec(
+        "one_x_adaptive",
+        1.0,
+        description="1x nominal load with the SLO-driven adaptive batch "
+        "controller in the loop (input-borne B updates)",
+        adaptive=True,
+    ),
+    TrafficSpec(
+        "swing_adaptive",
+        0.4,
+        description="0.4x base rate under the 10x-swing trace with the "
+        "adaptive controller in the loop",
+        adaptive=True,
+        trace="swing10x",
+    ),
+)
+
+TRAFFICS: Dict[str, TrafficSpec] = {t.name: t for t in _TRAFFIC_LIST}
+
+
+@dataclass(frozen=True)
+class Cell:
+    """One composed-gauntlet cell: the five axes plus shape and seed.
+    A cell is a pure function of its fields — same cell, same
+    fingerprint, bit for bit (hbbft_tpu_torch/tools/soak.py pins this)."""
+
+    attack: str = "passive"
+    schedule: str = "uniform"
+    churn: str = "none"
+    crash: str = "none"
+    traffic: str = "none"
+    n: int = 4
+    epochs: int = 12
+    seed: int = 0
+    batch_size: int = 3
+    f: Optional[int] = None
+
+    def cell_id(self) -> str:
+        return (
+            f"{self.attack}x{self.schedule}x{self.churn}x{self.crash}"
+            f"x{self.traffic}@n{self.n}e{self.epochs}s{self.seed}"
+        )
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "attack": self.attack,
+            "schedule": self.schedule,
+            "churn": self.churn,
+            "crash": self.crash,
+            "traffic": self.traffic,
+            "n": self.n,
+            "epochs": self.epochs,
+            "seed": self.seed,
+            "batch_size": self.batch_size,
+            "f": self.f,
+        }
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "Cell":
+        return Cell(**{k: d[k] for k in Cell.__dataclass_fields__ if k in d})
+
+
+@dataclass
+class SoakResult:
+    """Verdicts + evidence + replay fingerprint for one gauntlet cell."""
+
+    cell: Cell
+    ok: bool = False
+    batches_identical: bool = False
+    epochs_committed: int = 0
+    eras: List[int] = field(default_factory=list)
+    missing_expected: List[str] = field(default_factory=list)
+    misattributed: List[Tuple[str, str, str]] = field(default_factory=list)
+    fault_kinds: Dict[str, int] = field(default_factory=dict)
+    fault_log: List[Tuple[str, str, str]] = field(default_factory=list)
+    batch_digest: str = ""
+    cranks: int = 0
+    messages_delivered: int = 0
+    #: crash-axis evidence: counts + per-recovery records, and the gate —
+    #: every restarted node within recommit_epochs of the honest maximum
+    crashes: int = 0
+    restarts: int = 0
+    recoveries: List[Dict[str, Any]] = field(default_factory=list)
+    recovered_in_time: bool = True
+    #: traffic-axis evidence (empty without a traffic source)
+    tx_committed: int = 0
+    tx_per_epoch: float = 0.0
+    commit_p50: float = 0.0
+    commit_p99: float = 0.0
+    traffic_fingerprint: str = ""
+    traffic_state: str = ""
+    error: Optional[str] = None
+    why: Optional[Dict[str, Any]] = None
+    stall_named: bool = False
+    bounded: bool = False
+    #: observability planes (run_cell obs=True): the per-epoch series
+    #: rows, the run's gating histogram, and — on failure — the flight
+    #: recorder's forensics bundle.  Evidence, NOT state: none of these
+    #: enter fingerprint(), so obs on/off cannot flip a replay verdict.
+    series: List[Dict[str, Any]] = field(default_factory=list)
+    gating: Dict[str, float] = field(default_factory=dict)
+    forensics: Optional[Dict[str, Any]] = None
+
+    def fingerprint(self) -> str:
+        """Seeded-replay fingerprint: batch sha256 + sorted fault log +
+        tx-tracker fingerprint + the crash/restart trace."""
+        h = hashlib.sha256()
+        h.update(self.batch_digest.encode())
+        for t in self.fault_log:
+            h.update(repr(t).encode())
+        h.update(self.traffic_fingerprint.encode())
+        h.update(
+            repr(
+                (
+                    self.crashes,
+                    self.restarts,
+                    [
+                        (r.get("node"), r.get("restart_crank"), r.get("replayed_events"))
+                        for r in self.recoveries
+                    ],
+                    self.cranks,
+                    self.epochs_committed,
+                )
+            ).encode()
+        )
+        return h.hexdigest()
+
+    def row(self) -> Dict[str, Any]:
+        return {
+            "cell": self.cell.cell_id(),
+            **self.cell.to_dict(),
+            "ok": self.ok,
+            "bounded": self.bounded,
+            "epochs_committed": self.epochs_committed,
+            "eras": self.eras,
+            "batch_digest": self.batch_digest,
+            "fingerprint": self.fingerprint(),
+            "fault_kinds": dict(sorted(self.fault_kinds.items())),
+            "missing_expected": self.missing_expected,
+            "misattributed": self.misattributed[:8],
+            "cranks": self.cranks,
+            "messages_delivered": self.messages_delivered,
+            "crashes": self.crashes,
+            "restarts": self.restarts,
+            "recoveries": self.recoveries,
+            "recovered_in_time": self.recovered_in_time,
+            "tx_committed": self.tx_committed,
+            "tx_per_epoch": self.tx_per_epoch,
+            "commit_p50": self.commit_p50,
+            "commit_p99": self.commit_p99,
+            "traffic_state": self.traffic_state,
+            "stall_named": self.stall_named,
+            "error": self.error,
+            "gating": self.gating,
+        }
+
+
+def build_cell_net(cell: Cell, backend=None, crank_limit: int = 5_000_000):
+    """The composed cell's VirtualNet: SenderQueue-wrapped QHB at N/f
+    under the cell's adversary, network schedule, and crash schedule."""
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import (
+        QueueingHoneyBadgerBuilder,
+    )
+    from hbbft_tpu_torch.protocols.sender_queue import SenderQueue
+
+    attack = ATTACKS[cell.attack]
+    sched = SCHEDULES[cell.schedule]
+    crash = CRASHES[cell.crash]
+    f = cell.f if cell.f is not None else (cell.n - 1) // 3
+
+    def make(ni, be, rng):
+        qhb = (
+            QueueingHoneyBadgerBuilder(ni, be, rng)
+            .batch_size(cell.batch_size)
+            .session_id(b"gauntlet")
+            .build()
+        )
+        return SenderQueue(qhb)
+
+    builder = (
+        NetBuilder(range(cell.n))
+        .num_faulty(f)
+        .adversary(attack.make(cell.n))
+        .schedule(sched.make(cell.n))
+        .crashes(crash.make(cell.n, cell.epochs))
+        .scenario(cell.cell_id())
+        .crank_limit(crank_limit)
+        .using(make)
+    )
+    if backend is not None:
+        builder = builder.backend(backend)
+    return builder.build(seed=cell.seed)
+
+
+def _soak_collect(result: SoakResult, net, driver) -> None:
+    """Evidence fields from a (possibly partial) composed run."""
+    correct = net.correct_nodes()
+    faulty_ids = {node.id for node in net.faulty_nodes()}
+    triples = sorted(
+        (repr(node.id), repr(fa.node_id), fa.kind)
+        for node in correct
+        for fa in node.faults_observed
+    )
+    result.fault_log = triples
+    kinds: Dict[str, int] = {}
+    for _, _, kind in triples:
+        kinds[kind] = kinds.get(kind, 0) + 1
+    result.fault_kinds = kinds
+    result.misattributed = [
+        t
+        for node in correct
+        for fa in node.faults_observed
+        if fa.node_id not in faulty_ids
+        for t in ((repr(node.id), repr(fa.node_id), fa.kind),)
+    ]
+    common = min((len(node.outputs) for node in correct), default=0)
+    result.epochs_committed = common
+    seqs = [node.outputs[:common] for node in correct]
+    result.batches_identical = bool(seqs) and all(s == seqs[0] for s in seqs)
+    h = hashlib.sha256()
+    for b in seqs[0] if seqs else ():
+        h.update(
+            repr(
+                (
+                    getattr(b, "era", 0),
+                    b.epoch,
+                    sorted(b.contributions.items(), key=repr),
+                    getattr(b, "change", None),
+                )
+            ).encode()
+        )
+    result.batch_digest = h.hexdigest()
+    result.eras = sorted(
+        {getattr(b, "era", 0) for b in (seqs[0] if seqs else ())}
+    )
+    result.cranks = net.cranks
+    result.messages_delivered = net.messages_delivered
+    if net.crash is not None:
+        st = net.crash.stats()
+        result.crashes = st["crashes"]
+        result.restarts = st["restarts"]
+        result.recoveries = st["recoveries"]
+        gate = net.crash.schedule.recommit_epochs
+        down = net.down_node_ids()
+        ref = max(
+            (len(n.outputs) for n in correct if n.id not in down), default=0
+        )
+        for nid, t in sorted(net.crash.tracks.items(), key=lambda kv: repr(kv[0])):
+            if t.crashes and t.state != "up":
+                result.recovered_in_time = False  # still (or terminally) down
+            elif t.restarts and len(net.nodes[nid].outputs) < ref - gate:
+                result.recovered_in_time = False
+    if driver is not None:
+        rep = driver.report()
+        result.tx_committed = rep["committed"]
+        result.tx_per_epoch = rep["tx_per_epoch"]
+        lat = driver.tracker.hist("tx_commit_latency")
+        result.commit_p50 = round(lat.percentile(50), 3)
+        result.commit_p99 = round(lat.percentile(99), 3)
+        # tracker.fingerprint() is a nested dict; hash a sorted repr so
+        # the soak fingerprint stays one hex string.  The controller's B
+        # trace (when the adaptive axis is on) is part of the replay
+        # contract: a divergent control decision must flip the cell
+        # fingerprint even if throughput happens to match.
+        fp = repr(sorted(driver.tracker.fingerprint().items()))
+        if driver.controller is not None:
+            fp += repr(driver.controller.b_trace())
+        result.traffic_fingerprint = hashlib.sha256(fp.encode()).hexdigest()
+        result.traffic_state = rep["status"]["state"]
+
+
+def run_cell(
+    cell: Cell,
+    backend=None,
+    crank_limit: int = 5_000_000,
+    obs: bool = True,
+    net_sink: Optional[List] = None,
+) -> SoakResult:
+    """Run one composed-gauntlet cell; never raises — a starved cell
+    comes back ok=False with the why-stalled report naming the dominant
+    cause (attack, partition, down node, or starved/saturated source).
+
+    ``obs=True`` (default) wires the three observability planes: a
+    :class:`~hbbft_tpu_torch.obs.critpath.CritPathRecorder` on the module stamp
+    hook (gating-chain reconstruction per epoch), a per-epoch
+    :class:`~hbbft_tpu_torch.obs.timeseries.MetricsLog` (``result.series``),
+    and a :class:`~hbbft_tpu_torch.obs.flight.FlightRecorder` whose forensics
+    bundle lands on ``result.forensics`` when the cell dies (CrankError,
+    verdict failure, or a ``crash:*`` fault).  None of it enters the
+    replay fingerprint.  Cells run sequentially, so the single
+    process-wide stamp hook is activated around this run only.
+
+    ``net_sink`` (a caller-supplied list) receives the live VirtualNet
+    before the first crank — the post-run inspection hook the dynamic
+    snapshot-coverage twin test uses to diff restored instances against
+    live ones."""
+    rec = _critpath.CritPathRecorder() if obs else None
+    if rec is not None:
+        _critpath.activate(rec)
+    try:
+        return _run_cell(cell, backend, crank_limit, rec, net_sink)
+    finally:
+        if rec is not None:
+            _critpath.deactivate()
+
+
+def _run_cell(
+    cell: Cell,
+    backend,
+    crank_limit: int,
+    rec: Optional[_critpath.CritPathRecorder],
+    net_sink: Optional[List] = None,
+) -> SoakResult:
+    from hbbft_tpu_torch.protocols.change import Change
+    from hbbft_tpu_torch.protocols.honey_badger import EncryptionSchedule
+    from hbbft_tpu_torch.traffic.driver import ObjectTrafficDriver
+    from hbbft_tpu_torch.traffic.workload import OpenLoopSource, ZipfPopulation
+
+    attack = ATTACKS[cell.attack]
+    sched = SCHEDULES[cell.schedule]
+    churn = CHURNS[cell.churn]
+    traffic = TRAFFICS[cell.traffic]
+    result = SoakResult(cell=cell)
+    net = build_cell_net(cell, backend=backend, crank_limit=crank_limit)
+    if net_sink is not None:
+        net_sink.append(net)
+    f = cell.f if cell.f is not None else (cell.n - 1) // 3
+
+    driver = None
+    if traffic.rate_frac is not None:
+        rate = traffic.rate_frac * (cell.n - f) * cell.batch_size
+        trace = None
+        if traffic.trace is not None:
+            from hbbft_tpu_torch.control.trace import make_trace
+
+            trace = make_trace(traffic.trace)
+        controller = None
+        if traffic.adaptive:
+            from hbbft_tpu_torch.control import SLO, AdaptiveBatchController
+
+            # small-N soak ladder bracketing the cell's batch size; a
+            # generous p99 target — soak cells compose partitions and
+            # outages, and the controller reacting (not the SLO holding)
+            # is what the gauntlet exercises
+            controller = AdaptiveBatchController(
+                SLO(p99_epochs=8.0),
+                initial_b=4,
+                ladder=(2, 4, 8, 16),
+                window=3,
+                hold_epochs=2,
+            )
+        source = OpenLoopSource(
+            rate=rate, population=ZipfPopulation(1024), trace=trace
+        )
+        driver = ObjectTrafficDriver(
+            net,
+            source,
+            rng=net.rng,
+            batch_size=cell.batch_size,
+            mempool_capacity=1 << 12,
+            controller=controller,
+        )
+
+    series = flight = None
+    all_paths: List[_critpath.EpochCritPath] = []
+    next_frame = [0]
+    if rec is not None:
+        series = MetricsLog()
+        flight = FlightRecorder(context={"cell": cell.to_dict()})
+        net.critpath = rec  # crank/virtual-clock ticks + health gate line
+        net.metrics_log = series
+
+    def _epoch_obs(k: Optional[int] = None) -> None:
+        """Epoch boundary: drain the stamp ring, reconstruct the window's
+        gating chains, snap a series row, and push a flight frame."""
+        if rec is None:
+            return
+        if k is None:
+            k = next_frame[0]
+        next_frame[0] = k + 1
+        events = rec.take()
+        paths = _critpath.paths_from_events(events)
+        if paths:
+            rec.last_path = paths[-1]
+            all_paths.extend(paths)
+        row = snap_net(
+            series,
+            net,
+            k,
+            gate=paths[-1] if paths else None,
+            controller_b=(
+                driver.controller.current_b
+                if driver is not None and driver.controller is not None
+                else None
+            ),
+            mempool_depth=driver.max_depth if driver is not None else None,
+        )
+        flight.record(k, series_row=row, events=events)
+
+    def _obs_finish(reason: Optional[str]) -> None:
+        """Attach the evidence planes to the result; ``reason`` non-None
+        dumps the flight ring as a forensics bundle."""
+        if rec is None:
+            return
+        if rec.events:
+            _epoch_obs()  # trailing window (recovery grace / mid-epoch death)
+        result.series = series.rows_list()
+        result.gating = _critpath.gating_histogram(all_paths)
+        if reason is not None:
+            summary = (result.why or {}).get("summary") or []
+            result.forensics = flight.bundle(
+                reason,
+                why=result.why,
+                faults=result.fault_log,
+                gate_hint=summary[0] if summary else None,
+            )
+
+    churn_epochs = set(churn.make(cell.n, cell.epochs))
+    # alternating schedule flips so consecutive churn votes name distinct
+    # winning changes (tick_tock(1, 0) encrypts every epoch — semantics
+    # identical to always, so the flip costs an era change and nothing else)
+    flips = (
+        Change.set_schedule(EncryptionSchedule("tick_tock", 1, 0)),
+        Change.set_schedule(EncryptionSchedule.always()),
+    )
+    nflip = 0
+
+    def live_done(nt, k: int) -> bool:
+        down = nt.down_node_ids()
+        return all(
+            len(node.outputs) >= k + 1
+            for node in nt.correct_nodes()
+            if node.id not in down
+        )
+
+    try:
+        for k in range(cell.epochs):
+            if k in churn_epochs:
+                ch = flips[nflip % 2]
+                nflip += 1
+                # down nodes included: send_input parks the vote and the
+                # restarted node casts it at recovery (client-retry model)
+                for node in net.correct_nodes():
+                    net.send_input(node.id, ("change", ch))
+            if driver is not None:
+                driver._wave(k)
+            else:
+                if k == 0:
+                    for node in net.correct_nodes():
+                        net.send_input(
+                            node.id, ("user", ("boot", repr(node.id)))
+                        )
+                net.crank_until(
+                    lambda nt, k=k: live_done(nt, k), max_cranks=crank_limit
+                )
+            _epoch_obs(k)
+        if net.crash is not None:
+            # recovery grace: give the last restart room to catch up to
+            # the honest maximum before the verdict reads the gate.
+            # Bounded by a few epochs' worth of cranks — a permanently
+            # failed recovery must not spin to the crank limit (QHB
+            # self-perpetuates, so the net never quiesces on its own)
+            gate = net.crash.schedule.recommit_epochs
+            per_epoch = max(1_000, net.cranks // max(1, cell.epochs))
+            grace = min(crank_limit, per_epoch * (gate + 3) * 4)
+
+            def recovered(nt) -> bool:
+                correct = nt.correct_nodes()
+                ref = max(
+                    (
+                        len(n.outputs)
+                        for n in correct
+                        if not nt.crash.is_down(n.id)
+                    ),
+                    default=0,
+                )
+                for nid, t in sorted(
+                    nt.crash.tracks.items(), key=lambda kv: repr(kv[0])
+                ):
+                    if t.state == "failed":
+                        continue  # terminally down: the verdict fails it
+                    if (t.state == "down" and t.restart_pending) or (
+                        t.state == "up" and t.restarts
+                    ):
+                        if (
+                            nt.crash.is_down(nid)
+                            or len(nt.nodes[nid].outputs) < ref - gate
+                        ):
+                            return False
+                return True
+
+            try:
+                net.crank_until(recovered, max_cranks=grace)
+            except CrankError:
+                pass  # verdict reads the gate from the final state
+    except CrankError as err:
+        result.error = str(err).splitlines()[0]
+        result.why = err.report
+        result.stall_named = bool((err.report or {}).get("summary"))
+        _soak_collect(result, net, driver)
+        _obs_finish("crank_error")
+        if sched.lossy:
+            # bounded-degradation contract: a lossy stall passes iff the
+            # committed prefix is identical, nothing was misattributed,
+            # restarts met their gate, and the stall names its cause
+            result.ok = (
+                result.batches_identical
+                and not result.misattributed
+                and result.recovered_in_time
+                and result.stall_named
+            )
+            result.bounded = result.ok
+        return result
+    _soak_collect(result, net, driver)
+    faulty_ids = {repr(node.id) for node in net.faulty_nodes()}
+    missing = []
+    for kind in attack.expected_faults:
+        landed = any(
+            k == kind and accused in faulty_ids
+            for _, accused, k in result.fault_log
+        )
+        if not landed:
+            missing.append(kind)
+    result.missing_expected = missing
+    result.ok = (
+        result.batches_identical
+        and result.epochs_committed >= cell.epochs
+        and not missing
+        and not result.misattributed
+        and result.recovered_in_time
+    )
+    if sched.lossy and not result.ok:
+        # bounded-degradation contract, same as the 2-axis matrix
+        result.ok = (
+            result.batches_identical
+            and not result.misattributed
+            and result.recovered_in_time
+        )
+        result.bounded = result.ok
+    reason = None
+    if not result.ok:
+        reason = "verdict_failure"
+    else:
+        # a crash:* fault with a passing verdict (e.g. checkpoint_failed)
+        # still merits the evidence dump, the evidence to debug it from
+        crash_kinds = sorted(k for k in result.fault_kinds if k.startswith("crash:"))
+        if crash_kinds:
+            reason = crash_kinds[0]
+    _obs_finish(reason)
+    return result

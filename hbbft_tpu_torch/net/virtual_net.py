@@ -14,10 +14,9 @@ scheduling, adversaries, and protocol RNG needs.
 
 The port's copy of the JAX package's ``net/virtual_net.py``, with its
 crash/restart axis (``net/crash.py``, :meth:`NetBuilder.crashes`), its
-critical-path recorder hook and its scenario label.  The hooks of
-subsystems the port does not have yet (the schedule explorer's
-``controlled`` scheduler and race probe, the metrics log, the traffic
-driver) come with them.  Unlike the reference, :meth:`NetBuilder.build`
+critical-path recorder, metrics-log and traffic-driver hooks and its
+scenario label.  The schedule explorer's hooks (the ``controlled``
+scheduler and race probe) come with the port's ``analysis/``.  Unlike the reference, :meth:`NetBuilder.build`
 defaults to ``TorchBackend()`` on the card; the mock is asked for by name.
 """
 
@@ -203,11 +202,17 @@ class Node:
 class VirtualNet:
     """N protocol instances + a message queue + a crank loop."""
 
-    #: critical-path recorder (obs/critpath.CritPathRecorder) —
-    #: environment, not state: it holds an open-ended evidence ring the
-    #: harness owns, so whole-net snapshots drop it and restore falls back
-    #: to None.
+    #: attached traffic driver (hbbft_tpu_torch/traffic/driver.py registers
+    #: itself here so why_stalled can name a starved/saturated source).
+    #: Environment, not state: whole-net snapshots drop it (the driver
+    #: holds live callables) and restore falls back to None.
+    traffic = None
+    #: critical-path recorder (obs/critpath.CritPathRecorder) and
+    #: per-epoch series (obs/timeseries.MetricsLog) — environment, not
+    #: state: both hold open-ended evidence rings the harness owns, so
+    #: whole-net snapshots drop them and restore falls back to None.
     critpath = None
+    metrics_log = None
     #: structured per-crank event sink and span tracer (hbbft_tpu_torch/obs) —
     #: environment, not state: both are observer planes holding open-ended
     #: buffers (and the tracer holds live hook callables), so a whole-net
@@ -216,7 +221,9 @@ class VirtualNet:
     event_log = None
     tracer = None
     _SNAPSHOT_ENV_ATTRS = (
+        "traffic",
         "critpath",
+        "metrics_log",
         "event_log",
         "tracer",
     )

@@ -14,12 +14,14 @@ decode (``broadcast.py``), BA decision + coin reveal
 :class:`CritPathRecorder` installed with :func:`activate` receives them,
 time-stamped with the virtual-clock/crank context the net feeds through
 :meth:`CritPathRecorder.tick`; with none active each call costs one
-module-global ``is None`` check.  The reference's array-engine half (a
-path from ``EpochReport.phase_seconds``, the series-capture gating diff)
-comes with the tools that read it.
+module-global ``is None`` check.  The lockstep array engine's per-epoch
+phase wall stamps (``EpochReport.phase_seconds``) collapse to a path via
+:func:`path_from_phase_seconds`; :func:`gating_from_series` and
+:func:`diff_gating` read and compare the gates a ``MetricsLog`` carries.
 
 Determinism: no wall-clock reads — every timestamp arrives from the
-caller (virtual cranks) — and all dict/set iteration is sorted.
+caller (virtual cranks, tracer clocks) — and all dict/set iteration is
+sorted.
 """
 
 from __future__ import annotations
@@ -41,6 +43,15 @@ PHASES = (
 )
 
 _PHASE_SET = frozenset(PHASES)
+
+#: engine phase-stamp key -> phase name (path_from_phase_seconds input).
+_ENGINE_PHASES = {
+    "rbc": "rbc.output",
+    "ba": "ba.decide",
+    "coin": "coin.reveal",
+    "decrypt": "decrypt.combine",
+    "crash:recovery": "crash:recovery",
+}
 
 # -- the module-level stamp hook -------------------------------------------
 
@@ -82,7 +93,7 @@ def stamp(
 
 class CritPathRecorder:
     """Bounded ring of completion events with crank/virtual-clock
-    context; drained per epoch by the harness (net/scenarios.run_scenario)
+    context; drained per epoch by the harness (net/scenarios.run_scenario, run_cell)
     into flight-recorder frames."""
 
     __slots__ = (
@@ -356,6 +367,41 @@ def paths_from_events(events: List[Dict[str, Any]]) -> List[EpochCritPath]:
     return paths
 
 
+def path_from_phase_seconds(
+    epoch: int,
+    phase_seconds: Dict[str, float],
+    cranks: int = 0,
+    device_s: float = 0.0,
+) -> EpochCritPath:
+    """The lockstep array engine's path: phase wall stamps (rbc / ba /
+    coin / decrypt, EpochReport.phase_seconds) collapse to a chain whose
+    gate is the longest phase.  Instances are degenerate (lockstep runs
+    all N in the same wall interval), so the gate names phase only."""
+    durs: Dict[str, float] = {}
+    for k in sorted(phase_seconds):
+        ph = _ENGINE_PHASES.get(k)
+        if ph is not None:
+            durs[ph] = durs.get(ph, 0.0) + phase_seconds[k]
+    gate_phase = "epoch.commit"
+    best = -1.0
+    for ph in sorted(durs):
+        if durs[ph] > best:
+            best = durs[ph]
+            gate_phase = ph
+    chain = [
+        {"phase": ph, "instance": None, "node": None, "round": None, "seg_s": round(durs[ph], 6)}
+        for ph in sorted(durs, key=lambda p: -durs[p])
+    ]
+    return EpochCritPath(
+        epoch=epoch,
+        gate_phase=gate_phase,
+        cranks=cranks,
+        wall_s=round(sum(durs.values()), 6),
+        device_s=round(device_s, 6),
+        chain=chain,
+    )
+
+
 # -- run-level aggregation --------------------------------------------------
 
 
@@ -369,3 +415,32 @@ def gating_histogram(paths: List[EpochCritPath]) -> Dict[str, float]:
     if not total:
         return {}
     return {k: round(counts[k] / total, 4) for k in sorted(counts)}
+
+
+def gating_from_series(rows: List[Dict[str, Any]]) -> Dict[str, float]:
+    """Gating histogram straight from MetricsLog rows (their ``gate``
+    field) — the series-capture form tools/trace_report.py diffs."""
+    counts: Dict[str, int] = {}
+    for r in rows:
+        g = r.get("gate")
+        if isinstance(g, dict) and g.get("phase"):
+            counts[g["phase"]] = counts.get(g["phase"], 0) + 1
+    total = sum(counts[k] for k in counts)
+    if not total:
+        return {}
+    return {k: round(counts[k] / total, 4) for k in sorted(counts)}
+
+
+def diff_gating(
+    old: Dict[str, float], new: Dict[str, float], tol: float = 0.10
+) -> List[Dict[str, Any]]:
+    """Phase-share shifts beyond ``tol`` between two gating histograms
+    (absolute share points; >tol is a regression-gate failure)."""
+    out = []
+    for ph in sorted(set(old) | set(new)):
+        a, b = old.get(ph, 0.0), new.get(ph, 0.0)
+        if abs(b - a) > tol:
+            out.append(
+                {"phase": ph, "old": round(a, 4), "new": round(b, 4), "shift": round(b - a, 4)}
+            )
+    return out

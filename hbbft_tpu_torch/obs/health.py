@@ -13,7 +13,8 @@ SenderQueue → QueueingHoneyBadger → DynamicHoneyBadger → HoneyBadger →
 Subset wrapper chain) and reports exactly that, per node;
 ``VirtualNet`` attaches it to every tripped limit.  A runner's scenario
 label, its crash axis (``net.crash``) and its critical-path recorder's
-latest gate (``net.critpath``) lead the report.
+latest gate (``net.critpath``) lead the report, and a traffic driver
+(``net.traffic``) adds its source's state: starved or saturated.
 
 :class:`HealthReporter` is the driver-facing wrapper: call :meth:`tick`
 once per crank burst / epoch with the run's monotonic progress figures;
@@ -22,9 +23,6 @@ msgs/s, device-time share, fault count, counter deltas) and — after
 ``stall_timeout_s`` seconds without progress — a one-shot why-stalled
 report.  Wired into ``hbbft_tpu_torch/tools/simulation.py``
 (``--heartbeat`` / ``--stall-timeout``).
-
-The reference's traffic section (a starved or saturated traffic source)
-comes with the port's ``traffic/``.
 """
 
 from __future__ import annotations
@@ -246,6 +244,56 @@ def _crash_summary(ctx: Dict[str, Any]) -> List[str]:
     return lines
 
 
+def _traffic_context(net: Any) -> Optional[Dict[str, Any]]:
+    """Traffic-source state of a runner driven by the traffic subsystem
+    (``net.traffic`` is a driver exposing ``status()`` —
+    hbbft_tpu_torch/traffic/driver.py).  Duck-typed and total like the
+    scenario context: a runner without traffic contributes nothing, and
+    a report must never raise on a custom driver."""
+    tr = getattr(net, "traffic", None)
+    if tr is None:
+        return None
+    status = getattr(tr, "status", None)
+    if not callable(status):
+        return None
+    try:
+        st = dict(status())
+    except Exception:
+        return None
+    return st or None
+
+
+def _traffic_summary(ctx: Dict[str, Any]) -> str:
+    state = ctx.get("state", "unknown")
+    src = ctx.get("source") or {}
+    name = src.get("source", "traffic") if isinstance(src, dict) else str(src)
+    if state == "saturated":
+        line = (
+            f"traffic source {name} saturated: mempool "
+            f"{ctx.get('mempool_depth', '?')}/{ctx.get('capacity', '?')}, "
+            f"{ctx.get('dropped', 0)} dropped, {ctx.get('evicted', 0)} evicted"
+        )
+    elif state == "starved":
+        line = (
+            f"traffic source {name} starved: mempool empty, "
+            f"{ctx.get('committed', 0)} committed, nothing pending"
+        )
+    else:
+        line = f"traffic source {name} {state}"
+    ctrl = ctx.get("controller")
+    if isinstance(ctrl, dict):
+        # the control plane's live operating point rides the stall
+        # report: current B and whether the declared SLO holds
+        slo = ctrl.get("slo") or {}
+        line += (
+            f"; adaptive batch B={ctrl.get('batch_size')} "
+            f"(p99 target {slo.get('p99_epochs')} epochs, "
+            + ("SLO compliant" if ctrl.get("compliant") else "SLO VIOLATED")
+            + ")"
+        )
+    return line
+
+
 def why_stalled(net_or_nodes: Any) -> Dict[str, Any]:
     """Build the why-stalled report for a quiesced-but-unfinished run.
 
@@ -277,6 +325,10 @@ def why_stalled(net_or_nodes: Any) -> Dict[str, Any]:
     if cctx is not None:
         report["crash"] = cctx
         report["summary"].extend(_crash_summary(cctx))
+    tctx = _traffic_context(net_or_nodes)
+    if tctx is not None:
+        report["traffic"] = tctx
+        report["summary"].append(_traffic_summary(tctx))
     for nid in sorted(nodes, key=repr):
         node = nodes[nid]
         algo = getattr(node, "algorithm", None)
@@ -341,10 +393,12 @@ class HealthReporter:
     ``net.metrics`` or ``backend.counters.snapshot``); heartbeats carry
     the nonzero deltas since the previous beat plus a device-time share.
     ``stall_report_fn`` (e.g. ``lambda: why_stalled(net)``) is invoked
-    once per stall episode; progress re-arms the detector.  The
-    reference's ``gate_fn`` (the soak cell's critical-path one-liner) and
-    ``shard_stats_fn`` (a mesh backend's balance) come with their callers,
-    the soak half and ``parallel/``.
+    once per stall episode; progress re-arms the detector.  A traffic
+    driver's fields (mempool depth, commit p99, committed and dropped
+    transactions, the controller's B and SLO compliance) ride ``tick``'s
+    keyword extras.  The reference's ``gate_fn`` (no caller in either
+    package) and ``shard_stats_fn`` (a mesh backend's balance, with the
+    port's ``parallel/``) are left out.
     """
 
     def __init__(

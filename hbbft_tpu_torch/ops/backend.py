@@ -1150,37 +1150,46 @@ class TorchBackend(CryptoBackend):
         return out  # type: ignore[return-value]
 
     def merkle_build_batch(self, shard_lists: Sequence[Sequence[bytes]]) -> List[Any]:
-        """All proposers' Merkle trees in one batched SHA-256 dispatch.
+        """All proposers' Merkle trees, one batched SHA-256 dispatch per
+        tree shape.
 
-        Requires the rectangular case (uniform leaf count and length across
-        the batch: the epoch's trees, all over one codec's shards); any
-        other shape falls back to the host loop, including its empty-tree
-        raise.  The fetched levels are adopted without re-hashing
-        (``MerkleTree.from_levels``), so the trees are bit-identical to
-        host-built ones."""
+        Trees are grouped by (leaf count, leaf length): the epoch's trees
+        all have the codec's leaf count, but proposals of different sizes
+        give shards of different lengths, so one epoch can hold many
+        shapes, each a rectangle of its own (as ``rs_reconstruct_batch``
+        groups by shard length).  A tree whose own leaves differ in length,
+        or that has none, runs the host loop inline, in item order, so its
+        raise matches the host loop's.  The fetched levels are adopted
+        without re-hashing (``MerkleTree.from_levels``), so the trees are
+        bit-identical to host-built ones."""
         sls = [list(sl) for sl in shard_lists]
-        if not device_rs_enabled() or not sls or not sls[0]:
+        if not device_rs_enabled() or not sls:
             return CryptoBackend.merkle_build_batch(self, sls)
-        n = len(sls[0])
-        leaf_len = len(sls[0][0])
-        if any(len(sl) != n or any(len(v) != leaf_len for v in sl) for sl in sls):
-            return CryptoBackend.merkle_build_batch(self, sls)
-        with self._host_assembly():
-            leaves = np.frombuffer(
-                b"".join(b"".join(sl) for sl in sls), dtype=np.uint8
-            ).reshape(len(sls), n, leaf_len)
-            args = (self._tensor(leaves),)
-        self.counters.device_dispatches += 1
         trees: List[Any] = [None] * len(sls)
+        groups: Dict[Tuple[int, int], List[int]] = {}
+        for i, sl in enumerate(sls):
+            lens = {len(v) for v in sl}
+            if len(lens) != 1:
+                trees[i] = MerkleTree(sl)  # the host build, its empty-tree raise included
+                continue
+            groups.setdefault((len(sl), lens.pop()), []).append(i)
+        for (n, leaf_len), idxs in groups.items():
+            with self._host_assembly():
+                leaves = np.frombuffer(
+                    b"".join(b"".join(sls[i]) for i in idxs), dtype=np.uint8
+                ).reshape(len(idxs), n, leaf_len)
+                args = (self._tensor(leaves),)
+            self.counters.device_dispatches += 1
 
-        def deliver(levels):
-            for ti, sl in enumerate(sls):
-                trees[ti] = MerkleTree.from_levels(
-                    sl, [[lvl[ti, j].tobytes() for j in range(lvl.shape[1])] for lvl in levels]
-                )
+            def deliver(levels, idxs=tuple(idxs)):
+                for ti, i in enumerate(idxs):
+                    trees[i] = MerkleTree.from_levels(
+                        sls[i], [[lvl[ti, j].tobytes() for j in range(lvl.shape[1])]
+                                 for lvl in levels]
+                    )
 
-        self._dispatch_async(sha256.tree_levels, args, kind="merkle", items=len(sls),
-                             on_result=deliver)
+            self._dispatch_async(sha256.tree_levels, args, kind="merkle", items=len(idxs),
+                                 on_result=deliver)
         self._pipe.flush()
         return trees
 

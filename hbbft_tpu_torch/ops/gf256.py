@@ -19,8 +19,9 @@ happens once on the host, and so does the packing of each bit row into
 multiply them as float32 — exact: at most 8·256 terms that are 0 or 1, TF32
 pinned off by ``utils/device.py`` — take the parity, pack) on a CPU tensor,
 and launches ``csrc/gf256.cu`` (``gf256_matmul``: AND/XOR against the packed
-rows, popcount parity and pack in one pass) on a CUDA tensor; it counts its launches in ``.launches``
-and the columns it was given in ``.lanes``.  The reference's
+rows, popcount parity and pack in one pass) on a CUDA tensor; it counts its
+launches in ``.launches``, the columns it was given in ``.lanes`` and the
+widest launch's in ``.widest``.  The reference's
 ``HBBFT_TPU_GF_DOT`` (an int8 or bf16 dot on the TPU's matrix unit, the same
 bytes either way) has no counterpart here.
 """
@@ -143,16 +144,19 @@ def gf256_matmul(mwords: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                            f"({rc})")
     gf256_matmul.launches += 1
     gf256_matmul.lanes += L
+    gf256_matmul.widest = max(gf256_matmul.widest, L)
     return out
 
 
 gf256_matmul.launches = 0
 gf256_matmul.lanes = 0  # columns over all launches
+gf256_matmul.widest = 0  # the widest launch's columns
 
 
 def reset_launches() -> None:
     gf256_matmul.launches = 0
     gf256_matmul.lanes = 0
+    gf256_matmul.widest = 0
 
 
 def build() -> Dict[str, float]:

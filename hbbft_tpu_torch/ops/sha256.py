@@ -25,7 +25,9 @@ The kernels are ``csrc/sha256.cu``'s; their wrappers ``sha256_tagged`` and
 (``sha256_tagged_plain``, ``sha256_proofs_plain``: the reference's padding,
 schedule and rounds on int64 words masked to 32 bits, since PyTorch's
 uint32 support is partial) on a CPU tensor, and count their launches in
-``.launches`` and their messages (proofs) in ``.lanes``.  Everything here
+``.launches``, their messages (proofs) in ``.lanes`` and the widest
+launch's in ``.widest``; the proof walk also keeps the leaf lengths it was
+given in ``.leaf_lengths``.  Everything here
 returns tensors on the input's device; fetching is the caller's job
 (``ops/backend.py`` routes results through the dispatch seam).
 """
@@ -72,27 +74,44 @@ def compressions(msg_len: int) -> int:
 # -- plain versions ----------------------------------------------------------
 
 
-def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
-    return ((x >> n) | (x << (32 - n))) & _M32
+def _sigma(x: torch.Tensor, a: int, b: int, c: int, shift: bool = False) -> torch.Tensor:
+    """rotr(x, a) ^ rotr(x, b) ^ rotr(x, c) (``shift``: x >> c for the
+    last) on int64 holding 32-bit values.  A rotation's right shift and the
+    low 32 bits of its left shift never overlap, so the three rotations are
+    the XOR of the right shifts and of the masked left shifts."""
+    lo = (x << (32 - a)) ^ (x << (32 - b))
+    if not shift:
+        lo = lo ^ (x << (32 - c))
+    return (x >> a) ^ (x >> b) ^ (x >> c) ^ (lo & _M32)
+
+
+def _schedule(words: torch.Tensor) -> torch.Tensor:
+    """The message schedule of every block at once, with the round
+    constants added: (B, nblocks, 16) words → (B, nblocks, 64) K[t] + W[t]
+    (the schedule reads the message only, not the state)."""
+    ws = list(words.unbind(-1))
+    for t in range(16, 64):
+        s0 = _sigma(ws[t - 15], 7, 18, 3, shift=True)
+        s1 = _sigma(ws[t - 2], 17, 19, 10, shift=True)
+        ws.append((ws[t - 16] + s0 + ws[t - 7] + s1) & _M32)
+    return torch.stack(ws, dim=-1) + torch.tensor(_K, dtype=torch.int64, device=words.device)
 
 
 def _compress(state: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One compression over a batch: ``state`` (B, 8) and the block's words
     ``w`` (B, 16), int64 holding 32-bit values → the new (B, 8) state."""
-    ws = [w[:, t] for t in range(16)]
-    for t in range(16, 64):
-        w15, w2 = ws[t - 15], ws[t - 2]
-        s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
-        s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
-        ws.append((ws[t - 16] + s0 + ws[t - 7] + s1) & _M32)
-    a, b, c, d, e, f, g, h = (state[:, i] for i in range(8))
+    return _rounds(state, _schedule(w[:, None])[:, 0])
+
+
+def _rounds(state: torch.Tensor, kw: torch.Tensor) -> torch.Tensor:
+    """The 64 rounds of a compression over a batch: ``state`` (B, 8) and
+    the block's K[t] + W[t] ``kw`` (B, 64) → the new (B, 8) state."""
+    kws = kw.unbind(1)
+    a, b, c, d, e, f, g, h = state.unbind(1)
     for t in range(64):
-        s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
-        ch = (e & f) ^ (~e & _M32 & g)
-        t1 = (h + s1 + ch + _K[t] + ws[t]) & _M32
-        s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
-        maj = (a & b) ^ (a & c) ^ (b & c)
-        a, b, c, d, e, f, g, h = (t1 + s0 + maj) & _M32, a, b, c, (d + t1) & _M32, e, f, g
+        t1 = h + _sigma(e, 6, 11, 25) + (g ^ (e & (f ^ g))) + kws[t]
+        t2 = _sigma(a, 2, 13, 22) + ((a & b) | (c & (a | b)))
+        a, b, c, d, e, f, g, h = (t1 + t2) & _M32, a, b, c, (d + t1) & _M32, e, f, g
     return (torch.stack([a, b, c, d, e, f, g, h], dim=1) + state) & _M32
 
 
@@ -125,10 +144,10 @@ def _digest_bytes(state: torch.Tensor) -> torch.Tensor:
 def sha256_tagged_plain(msgs: torch.Tensor, tag: int) -> torch.Tensor:
     """Plain PyTorch version of ``sha256_tagged``: sha256(bytes([tag]) + m)
     for every row m of ``msgs`` ((B, L) uint8 → (B, 32) uint8)."""
-    words = _pad_tagged(msgs, tag)
+    kw = _schedule(_pad_tagged(msgs, tag))
     state = torch.tensor(_H0, dtype=torch.int64, device=msgs.device).expand(msgs.shape[0], 8)
-    for blk in range(words.shape[1]):
-        state = _compress(state, words[:, blk])
+    for blk in range(kw.shape[1]):
+        state = _rounds(state, kw[:, blk])
     return _digest_bytes(state)
 
 
@@ -194,6 +213,7 @@ def sha256_tagged(msgs: torch.Tensor, tag: int) -> torch.Tensor:
     _check(lib, rc, "sha256_tagged")
     sha256_tagged.launches += 1
     sha256_tagged.lanes += n
+    sha256_tagged.widest = max(sha256_tagged.widest, n)
     return out
 
 
@@ -229,13 +249,18 @@ def sha256_proofs(leaves, paths, indices, roots) -> torch.Tensor:
     _check(lib, rc, "sha256_proofs")
     sha256_proofs.launches += 1
     sha256_proofs.lanes += n
+    sha256_proofs.widest = max(sha256_proofs.widest, n)
+    sha256_proofs.leaf_lengths.add(leaves.shape[1])
     return out
 
 
 sha256_tagged.launches = 0
 sha256_tagged.lanes = 0  # messages over all launches
+sha256_tagged.widest = 0  # the widest launch's messages
 sha256_proofs.launches = 0
 sha256_proofs.lanes = 0  # proofs over all launches
+sha256_proofs.widest = 0  # the widest launch's proofs
+sha256_proofs.leaf_lengths = set()  # the leaf lengths its launches walked
 
 #: the kernels' wrappers
 KERNELS = (sha256_tagged, sha256_proofs)
@@ -245,6 +270,8 @@ def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
         k.lanes = 0
+        k.widest = 0
+    sha256_proofs.leaf_lengths = set()
 
 
 def build() -> Dict[str, float]:

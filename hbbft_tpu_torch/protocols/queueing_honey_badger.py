@@ -65,12 +65,28 @@ class QueueingHoneyBadgerBuilder:
 
 
 class QueueingHoneyBadger(ConsensusProtocol):
-    """The port's copy of the JAX package's QueueingHoneyBadger without its
-    two environment hooks, ``sample_listener`` (the traffic subsystem's
-    queue-dwell probe) and ``batch_size_provider`` (the adaptive
-    controller's batch size): the port has neither consumer yet, so every
-    proposal samples ``batch_size``, the reference's path when both hooks
-    are None."""
+    """The port's copy of the JAX package's QueueingHoneyBadger, with its
+    two environment hooks and the control plane's ``("batch_size", B)``
+    input."""
+
+    #: optional observer called with each freshly-sampled proposal: the
+    #: traffic subsystem's queue-dwell probe (ObjectTrafficDriver closes
+    #: the submit→sampled interval here; the array engine has an
+    #: equivalent hook in its contribution source).  Environment, not
+    #: state: snapshots drop it (a live bound method would otherwise make
+    #: every traffic-driven node unsnapshotable) and restore falls back to
+    #: the class None.
+    sample_listener = None
+    #: optional zero-arg -> int supplying the live batch size B (the
+    #: control plane's adaptive-batch hook; checkpoint-detached like
+    #: sample_listener).  When None, proposals sample ``batch_size``,
+    #: which is STATE and can also be steered by ("batch_size", B) inputs;
+    #: under the crash axis (net/crash.py) input-borne updates are the
+    #: correct channel, because inputs are WAL-logged and replay
+    #: bit-identically while a provider would answer replayed proposals
+    #: with the current B (see ObjectTrafficDriver).
+    batch_size_provider = None
+    _SNAPSHOT_ENV_ATTRS = ("sample_listener", "batch_size_provider")
 
     def __init__(
         self,
@@ -116,12 +132,19 @@ class QueueingHoneyBadger(ConsensusProtocol):
         return False
 
     def handle_input(self, input: Any, rng=None) -> Step:
-        """("user", tx) pushes a transaction; ("change", Change) votes."""
+        """("user", tx) pushes a transaction; ("change", Change) votes;
+        ("batch_size", B) re-sizes future proposals (the control plane's
+        input-borne channel: a plain state write, so it is snapshotted and
+        WAL-replayed like any other input; deliberately does NOT trigger a
+        proposal)."""
         kind, payload = input
         if kind == "user":
             return self.push_transaction(payload)
         if kind == "change":
             return self.vote_for(payload)
+        if kind == "batch_size":
+            self.batch_size = int(payload)
+            return Step()
         raise ValueError(f"unknown input kind {kind!r}")
 
     def push_transaction(self, tx: Any) -> Step:
@@ -166,5 +189,20 @@ class QueueingHoneyBadger(ConsensusProtocol):
         """Propose a fresh random sample if no proposal is in flight."""
         if not self.dhb.netinfo.is_validator() or self.dhb.hb.has_input:
             return Step()
-        sample = self.queue.choose(self.rng, self.batch_size)
+        b = (
+            self.batch_size
+            if self.batch_size_provider is None
+            # detached during replay by construction: restore drops the
+            # provider and the restart listener reattaches it only after
+            # the WAL loop finishes, so replayed proposals fall back to the
+            # logged ("batch_size", B) input channel
+            else int(self.batch_size_provider())
+        )
+        sample = self.queue.choose(self.rng, b)
+        if self.sample_listener is not None:
+            # observer-only: the listener sees the sample and its return
+            # value is ignored; a restored node replays unsampled (the
+            # listener falls back to None) and the driver reattaches it
+            # after the replay through the crash manager's restart listeners
+            self.sample_listener(sample)
         return self._wrap(self.dhb.propose(sample, self.rng))

@@ -94,9 +94,12 @@ _STATE_MODULES = (
     # parked traffic) — a whole-net snapshot taken mid-outage resumes
     # with the outage intact
     "hbbft_tpu_torch.net.crash",
-    # The reference also registers its control plane here (control.slo,
-    # control.controller, control.trace); the port has no control/ yet, and
-    # its modules join this registry when they are ported.
+    # control plane: the SLO spec, the adaptive batch controller (its B
+    # trace, hysteresis counters, and rng are replay state), and load
+    # traces — a soak resumed mid-run continues the same control law
+    "hbbft_tpu_torch.control.slo",
+    "hbbft_tpu_torch.control.controller",
+    "hbbft_tpu_torch.control.trace",
 )
 
 _registry_cache: Optional[Dict[str, type]] = None

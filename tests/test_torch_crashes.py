@@ -2,7 +2,7 @@
 against the JAX package's.
 
 Every case of the reference's ``test_crashes.py`` that drives the axis
-itself (the composed soak cells wait for the port's ``traffic/``) is built
+itself (its composed soak cells are in ``test_torch_soak.py``) is built
 twice, once from each package: SenderQueue ⊃ QueueingHoneyBadger on each
 one's ``MockBackend`` with the same crash schedule, N, f, adversary and
 seed, driven by the same code.  The two runs must agree on every node's
@@ -183,8 +183,8 @@ def restored_listeners(P):
 def second_crash(P):
     """The reference's ``two_restarts`` crash spec at 14 epochs (the highest
     honest node dies at epoch 3 and again at epoch 8, down 2 epochs each),
-    on the axis directly: the composed cell it rides there waits for the
-    port's soak half."""
+    on the axis directly (the composed cell it rides there is held in
+    ``test_torch_soak.py``)."""
     cs = schedule(P, dict(at_epoch=3, down_epochs=2), dict(at_epoch=8, down_epochs=2))
     net = qhb_net(P, crash=cs, seed=4)
     boot(net)

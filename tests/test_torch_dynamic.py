@@ -348,13 +348,17 @@ def test_sender_queue_routing_equals_the_reference(announce, msg_epoch, expect):
 
 def test_unported_batch_size_input_is_refused():
     """The reference's ``("batch_size", B)`` input (the adaptive
-    controller's channel) is not ported yet: the port refuses it as any
-    unknown input kind, leaving the proposals' size as built, while the
-    user and change inputs still go through."""
-    net = qhb_net(PORT, 4, seed=3)
-    qhb = net.nodes[0].algorithm
-    with pytest.raises(ValueError, match="batch_size"):
-        qhb.handle_input(("batch_size", 7))
-    assert qhb.batch_size == 3
-    step(net, 0, qhb.handle_input(("user", "tx-0")))
-    assert "tx-0" in qhb.queue
+    controller's channel), refused while the port lacked the controller, is
+    ported now: in both packages it is a state write that re-sizes later
+    proposals and proposes nothing, and the user and change inputs still go
+    through."""
+    def run(P):
+        net = qhb_net(P, 4, seed=3)
+        qhb = net.nodes[0].algorithm
+        st = qhb.handle_input(("batch_size", 7))
+        assert qhb.batch_size == 7 and not st.messages and not st.output
+        step(net, 0, qhb.handle_input(("user", "tx-0")))
+        assert "tx-0" in qhb.queue
+        return qhb.batch_size, summary(net)
+
+    assert run(PORT) == run(REF)

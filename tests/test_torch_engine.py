@@ -132,6 +132,58 @@ def test_no_hostpipe_gives_the_same_batches(runs):
     assert net.backend.counters.device_seconds_merkle == 0
 
 
+def test_proofs_walk_one_batch_a_leaf_length():
+    """Proposals of different sizes give trees of several leaf lengths:
+    on the device plane the engine packs and walks their proofs one batch
+    a length, ``reps`` dispatches each, with the verdicts in tree order
+    (a corrupted root fails its own tree's proofs alone), equal to the
+    per-proof objects'; the host's C kernel takes no ragged batch."""
+    net = ArrayHoneyBadgerNet(range(N), backend=TorchBackend(device="cpu"), seed=SEED)
+    rs = np.random.default_rng(12)
+    trees = [MerkleTree([bytes(rs.integers(0, 256, size=length, dtype=np.uint8))
+                         for _ in range(N)]) for length in (9, 13, 9, 40, 13)]
+    packs = net._pack_proofs(trees, N)
+    assert [rows for rows, _ in packs] == [[0, 2], [1, 4], [3]]
+    for rows, packed in packs:
+        want = PackedProofs.from_trees([trees[t] for t in rows], N, device=True)
+        assert np.array_equal(packed.leaves, want.leaves) and np.array_equal(
+            packed.paths, want.paths)
+    rows, packed = packs[1]
+    packed.roots[N:] ^= 1  # tree 4's proofs
+    before = net.backend.counters.device_dispatches
+    got = net._walk_packs(packs, N, reps=2)
+    assert net.backend.counters.device_dispatches - before == 2 * len(packs)
+    proofs = [t.proof(i) for t in trees for i in range(N)]
+    want = validate_proofs(proofs, N)
+    assert got == [ok and i // N != 4 for i, ok in enumerate(want)]
+    assert want == [True] * len(trees) * N
+    host = ArrayHoneyBadgerNet(range(N), backend=TorchBackend(device="cpu"), seed=SEED)
+    host.backend.device_rs_plane = False
+    assert host._pack_proofs(trees, N) is None
+
+
+def test_recommit_roots_take_the_c_kernel_a_shape_at_a_time(monkeypatch):
+    """Round 3's host re-commit: shard vectors of several shapes go to the
+    C batch kernel once a shape, a vector with leaves of mixed lengths to
+    the python tree; the roots are the host trees' either way."""
+    from hbbft_tpu_torch.engine import array_engine
+
+    rs = np.random.default_rng(13)
+    sls = [[bytes(rs.integers(0, 256, size=length, dtype=np.uint8)) for _ in range(count)]
+           for count, length in ((5, 9), (5, 13), (5, 9), (4, 9))]
+    sls.append([b"ab", b"c", b"de"])
+    shapes = []
+    root_batch = native.merkle_root_batch
+
+    def spy(leaves, size, reps):
+        shapes.append(leaves.shape)
+        return root_batch(leaves, size, reps)
+
+    monkeypatch.setattr(native, "merkle_root_batch", spy)
+    assert array_engine._roots_batch(sls, 3) == [MerkleTree(sl).root_hash for sl in sls]
+    assert shapes == [(2, 5, 9), (1, 5, 13), (1, 4, 9)]
+
+
 def test_unported_options_raise(monkeypatch):
     """(The name is from when these two options raised; it is kept so that
     the case stays the same case.)  The per-node SyncKeyGen arm of the era

@@ -274,14 +274,24 @@ def test_merkle_verify_bills_one_dispatch_a_repetition(tbe, pbe):
 
 
 def test_merkle_build_falls_back_on_ragged_batches(tbe, pbe):
-    """Mixed leaf counts or lengths take the host loop: the same trees, no
-    device dispatch."""
-    for sls in ([[b"aa", b"bb", b"cc"], [b"dd", b"ee"]], [[b"aa", b"b"], [b"cc", b"dd"]]):
-        dev, ref = _both(tbe, pbe, "merkle_build_batch", sls)
-        _, d, _ = _billing(pbe, lambda: pbe.merkle_build_batch(sls))
-        assert d == 0
+    """Trees of different shapes build in one device dispatch a (leaf
+    count, leaf length), where the reference plane takes the host loop for
+    the whole batch; only a tree whose own leaves differ in length, or an
+    empty one, takes the host loop.  The trees are the reference's and the
+    host's either way."""
+    cases = (
+        ([[b"aa", b"bb", b"cc"], [b"dd", b"ee"], [b"fff", b"ggg"], [b"hh", b"ii"]], 3),
+        ([[b"aa", b"b"], [b"cc", b"dd"]], 1),
+    )
+    for sls, dispatches in cases:
+        dev, d, kinds = _billing(pbe, lambda: pbe.merkle_build_batch(sls))
+        ref, d_ref, _ = _billing(tbe, lambda: tbe.merkle_build_batch(sls))
+        assert (d, kinds, d_ref) == (dispatches, {"merkle"}, 0)
         assert [t.levels for t in dev] == [t.levels for t in ref] == [
             MerkleTree(sl).levels for sl in sls]
+    for be in (pbe, tbe):
+        with pytest.raises(ValueError, match="empty tree"):
+            be.merkle_build_batch([[b"aa"], []])
 
 
 def test_from_trees_device_flag_skips_native_gates():

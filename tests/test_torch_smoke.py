@@ -359,3 +359,39 @@ def test_dynamic_phase_churn_with_real_crypto(smoke, capsys):
     assert 3 not in eras[1] and 3 in eras[2]
     assert real["stages"][0]["host_calls"]["kg_decrypt"] > 0
     assert "every pushed transaction committed once" in capsys.readouterr().out
+
+
+def test_traffic_phase_on_the_cpu(smoke, capsys):
+    """The traffic phase's two parts: (a) the traffic epochs at N=4 and B=8
+    on ``TorchBackend(device="cpu")`` (the card's code through the kernels'
+    plain versions) with the card's driver, source and controller settings
+    otherwise;
+    (b) the controller x crash cell at its card shape with both arms on the
+    port's MockBackend (the same calls the card makes, no real crypto),
+    the phase's result keys and its checks."""
+    from hbbft_tpu_torch.crypto.backend import MockBackend
+
+    b = 8
+    a = smoke.run_traffic_net(TorchBackend(device="cpu"), 4, smoke.TRAFFIC_EPOCHS, "traffic N=4",
+                              b)
+    assert len(a["epochs"]) == smoke.TRAFFIC_EPOCHS and a["committed"] > 0
+    assert all(ep["device_dispatches"] > 0 for ep in a["epochs"])
+    assert a["b_trace"][0] == b and len(a["series"]) == smoke.TRAFFIC_EPOCHS
+    assert a["mempool_peak_depth"] <= a["mempool_capacity"] == 2 * 4 * b
+    # the proposals differ in size, and each epoch's trees still build and
+    # walk their proofs on the device plane, one batch a leaf length
+    assert all(ep["device_seconds"].get("merkle", 0) > 0 for ep in a["epochs"])
+    res = smoke.phase_traffic("cpu", make_backend=MockBackend, n=4, b=b)
+    assert set(res) == {"net", "cell"}
+    # the mock's Batches are the real run's: the driver's draws do not
+    # depend on the crypto
+    assert res["net"]["digest"] == a["digest"] and res["net"]["b_trace"] == a["b_trace"]
+    real, mock = res["cell"]["torch"], res["cell"]["mock"]
+    assert real["fingerprint"] == mock["fingerprint"] and real["row"] == mock["row"]
+    row = real["row"]
+    assert row["ok"] and (row["crashes"], row["restarts"]) == (1, 1) and row["tx_committed"] > 0
+    assert len(real["b_trace"]) == smoke.TRAFFIC_CELL["epochs"]
+    out = capsys.readouterr().out
+    assert "every node output the same Batch of the sampled proposals" in out
+    assert "TorchBackend equals MockBackend" in out
+    json.dumps(res)
