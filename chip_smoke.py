@@ -75,7 +75,7 @@ Phases (any failure exits non-zero and prints no result line):
              combines), the native hash-to-G2 built; then ``fq_rns_mul`` and
              ``fq_rns_pow`` against their plain versions at the coin path's
              mean and widest launches.
-   era     — the era machinery at ERA_N=16 (``--era-n``): on its own
+   era     — the era machinery at ERA_N=10 (``--era-n``): on its own
              ``TorchBackend()``, ``ArrayHoneyBadgerNet(range(N), ...,
              dynamic=True)`` runs the sequence of ``run_epochs(2,
              churn_at=[1])`` (an epoch, the vote → batched DKG → era
@@ -138,7 +138,7 @@ Phases (any failure exits non-zero and prints no result line):
              ``TorchBackend()`` held against the port's ``MockBackend``:
              (a) the simulation driver (``tools/simulation.py``) at
              BASELINE config 1, RECOVERY_SIM (N=4, f=1, 100 transactions a
-             batch, ten epochs, the CLI's defaults otherwise), straight
+             batch, six epochs, the CLI's defaults otherwise), straight
              through, split by ``checkpoint()`` after RECOVERY_SPLIT epochs
              and ``Simulation.from_checkpoint`` on a fresh backend, and on
              the mock: the same batches on every node and epoch; (b) the
@@ -186,13 +186,34 @@ Phases (any failure exits non-zero and prints no result line):
              timed at the phase's mean widths.  It runs after the recovery
              phase.
              ``--traffic-only`` builds and runs this phase alone.
+   analysis — the port's machine checks of its own determinism and seam
+             discipline (``hbbft_tpu_torch/analysis/``): (a) the lint rule
+             engine over ``hbbft_tpu_torch/`` against its empty baseline
+             (0 new findings; the rule count and seconds logged); (b) the
+             schedule explorer's SMOKE_PLAN on the port's ``MockBackend``,
+             whose runs, non-equivalent schedules and DPOR prunes must be
+             the reference's (ANALYSIS_PLAN_COUNTS), then each seeded
+             mutant detected after the reference's number of runs
+             (ANALYSIS_MUTANT_RUNS) with a minimised counterexample that
+             ``replay_counterexample`` reproduces; (c) the explorer's
+             pipeline target on ``TorchBackend()``, the card (N=4, seed 0,
+             two epochs, one coin round), its ``RaceTracker`` on the
+             backend's ``DispatchPipeline`` through the pipeline's
+             ``probe`` hook: no error, the batches of the same target's
+             default schedule on ``MockBackend``, as many resolves as
+             submits (more than none); the count is logged beside
+             ``device_dispatches`` and the dispatch kinds.  The five epoch
+             kernels and the three plane kernels must launch in (c), then
+             each is held against its plain version at (c)'s mean and
+             widest launches.  It runs after the traffic phase (~30 s).
+             ``--analysis-only`` builds and runs this phase alone.
    bench   — the port's kernel bench (``hbbft_tpu_torch.tools.kernel_bench``)
              at its default widths: M muls/s of both field arms and the RNS
              chain, TFLOP/s of the FMA probe.
              Kernel launch counts are zeroed just before each of phases 3,
              limb arm (in the child), sig path, 4, coin epoch, the era
-             change, object, dynamic, recovery, traffic and bench, and
-             read just after; every
+             change, object, dynamic, recovery, traffic, the analysis
+             phase's card run and bench, and read just after; every
              kernel of the path must have launched.
 5. a ``{"kernels": [...]}`` line, one row per kernel: launches on its own
    path (epoch, limb arm or bench; the epoch kernels also carry their
@@ -201,9 +222,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``object_launches``, and each epoch kernel that phase's mean and widest
    launch, ``object_mean_lanes`` and ``object_widest_lanes``; the same for
    the dynamic phase, ``dynamic_launches``, ``dynamic_mean_lanes`` and
-   ``dynamic_widest_lanes``, the recovery phase, ``recovery_*``, and the
+   ``dynamic_widest_lanes``, the recovery phase, ``recovery_*``, the
    traffic phase, ``traffic_*``, with the plane kernels' time at the traffic
-   epochs' widths, ``traffic_ms`` beside ``traffic_plain_ms``; the plane's
+   epochs' widths, ``traffic_ms`` beside ``traffic_plain_ms``, and the
+   analysis phase's card run, ``analysis_*``; the plane's
    kernels are held at the epoch's
    own shapes first: a whole tree build, the N² proof walk with corrupted
    roots and leaf), largest difference from the plain
@@ -316,14 +338,15 @@ COIN_ROUNDS = 1
 #: host golden checks of the sig path: signature shares and instances sampled
 SIGN_SAMPLES = 100
 COMBINE_SAMPLES = 3
-#: the era phase's N: 16 (f=5).  Cut from the repo's N=100, whose era
+#: the era phase's N: 10 (f=3).  Cut from the repo's N=100, whose era
 #: change is ~30x the work of N=32's: 3,306 s on an H100 80GB HBM3 at 700 W,
 #: 2,636 s of it host hash-to-G2 (PERF.md §5), far more than the smoke's
 #: time limit; then from N=32 (the reference's n32_churn window step) to 24
 #: (~0.4x the hashes) to make room for the recovery phase on a slow host,
 #: and to 16 for the traffic phase (a whole smoke took ~1,210 s on a slow
-#: host); ``--era-n`` sets it.
-ERA_N = 16
+#: host), and to 10 beside the analysis phase (a whole smoke took ~1,175 s
+#: on a slow host); ``--era-n`` sets it.
+ERA_N = 10
 #: g1_lincomb's terms held against a pure host fold of g1_mul
 LINCOMB_SAMPLE = 64
 #: the object runtime's shapes (N, f, epochs), both cut from BASELINE's N=100,
@@ -438,6 +461,12 @@ def lazy_rows(rng, n: int, R):
     flat = [v for blk in vals for v in blk]
     reps = -(-n // len(rows))
     return np.tile(rows, (reps, 1))[:n], (flat * reps)[:n]
+
+
+#: timed calls of a plain version that takes a second or more a call
+#: (``fq_rns_pow``, ``hard_exp`` and ``fq_limb_pow`` on the card), after
+#: its warm-up: one, so the timing phase fits the smoke's time limit
+SLOW_PLAIN_REPS = 1
 
 
 def time_ms(fn, reps: int = 7) -> float:
@@ -2084,14 +2113,16 @@ def phase_dynamic(seed: int, card: str, device=None, shapes=DYNAMIC_SHAPES,
 #: the recovery phase.  (a) the port's simulation driver
 #: (hbbft_tpu_torch/tools/simulation.py) at BASELINE config 1, the published
 #: shape of examples/simulation.rs (N=4, f=1, 100 transactions a batch, ten
-#: epochs) with the CLI's defaults for the rest: 200 ten-byte transactions
-#: queued a node, λ = 100 ms, 2,000 KB/s, 1 ms a message, a 64-message
-#: crypto window, seed 0; the split run checkpoints after RECOVERY_SPLIT
-#: epochs and resumes in a fresh Simulation on a fresh backend
+#: epochs, cut to six, the split at three, when a whole smoke with the
+#: analysis phase took ~1,175 s on a slow host) with the CLI's defaults for
+#: the rest: 200 ten-byte transactions queued a node, λ = 100 ms, 2,000
+#: KB/s, 1 ms a message, a 64-message crypto window, seed 0; the split run
+#: checkpoints after RECOVERY_SPLIT epochs and resumes in a fresh
+#: Simulation on a fresh backend
 RECOVERY_SIM = dict(num_nodes=4, num_faulty=1, batch_size=100, tx_size=10, txns=200,
-                    epochs=10, lam=100.0, bandwidth=2000.0, cpu_factor=1.0, crypto_window=64,
+                    epochs=6, lam=100.0, bandwidth=2000.0, cpu_factor=1.0, crypto_window=64,
                     seed=0)
-RECOVERY_SPLIT = 5
+RECOVERY_SPLIT = 3
 #: (b) the crash axis, the schedule of the reference's
 #: test_crashes.py::test_crash_parks_traffic_and_restart_catches_up:
 #: SenderQueue ⊃ QueueingHoneyBadger, N=4, f=0, batch size 3, net seed 5,
@@ -2564,6 +2595,118 @@ def phase_traffic(card: str, make_backend=None, n: int = N,
     return res
 
 
+#: the analysis phase: (b) the explorer's SMOKE_PLAN counts (runs,
+#: non-equivalent schedules, DPOR prunes) by target and the runs after
+#: which each seeded mutant is detected, as the JAX package's explorer
+#: gives them (they depend on the seed only, not on the machine); (c) the
+#: pipeline target's shape on the card
+ANALYSIS_PLAN_COUNTS = {"pipeline": (40, 40, 0), "traffic": (25, 25, 0),
+                        "virtualnet": (40, 16, 98), "shard": (40, 40, 0)}
+ANALYSIS_MUTANT_RUNS = {"accum": 5, "counter": 2, "listener": 2, "shard": 5}
+ANALYSIS_SEED = 0
+ANALYSIS_N = 4
+ANALYSIS_EPOCHS = 2
+ANALYSIS_COIN_ROUNDS = 1
+
+
+def phase_analysis(card: str, make_backend=None, before_card=None) -> dict:
+    """The port's analysis tools: (a) the lint over ``hbbft_tpu_torch/``
+    against its empty baseline; (b) the explorer's SMOKE_PLAN on the
+    port's ``MockBackend`` with the reference's counts, then each mutant
+    detected with a counterexample that replays; (c) the pipeline target
+    on ``make_backend()`` (default ``TorchBackend()``) under a
+    ``RaceTracker``, held against the target's default schedule on
+    ``MockBackend``.  ``before_card()`` runs just before (c)."""
+    import tempfile
+    from pathlib import Path
+
+    from hbbft_tpu_torch.analysis import schedules as S
+    from hbbft_tpu_torch.analysis.engine import Baseline, all_rules, iter_python_files, run_lint
+    from hbbft_tpu_torch.ops.backend import TorchBackend
+    from hbbft_tpu_torch.tools import lint
+
+    make_backend = make_backend or TorchBackend
+    res: dict = {}
+
+    t = time.perf_counter()
+    root = Path(ROOT)
+    paths = iter_python_files(root / "hbbft_tpu_torch")
+    findings = run_lint(root, paths)
+    new = Baseline.load(lint.BASELINE_PATH).new_findings(findings)
+    res["lint"] = {"rules": len(all_rules()), "files": len(paths), "findings": len(findings),
+                   "new": len(new), "seconds": time.perf_counter() - t}
+    if new:
+        raise AssertionError("lint: new findings over hbbft_tpu_torch/:\n"
+                             + "\n".join(f.render() for f in new))
+    log(f"analysis (a) lint [{card}]: {res['lint']['rules']} rules over {len(paths)} files of "
+        f"hbbft_tpu_torch/, {len(new)} new finding(s) against the empty baseline, "
+        f"{res['lint']['seconds']:.3f} s")
+
+    t = time.perf_counter()
+    plan = {}
+    for target, n, max_runs in S.SMOKE_PLAN:
+        ex = S.explore(target, n, seed=ANALYSIS_SEED, max_runs=max_runs)
+        plan[target] = (ex.runs, ex.classes, ex.pruned)
+        if not ex.ok:
+            raise AssertionError(f"explorer: {target} diverged: {ex.divergence}")
+    if plan != ANALYSIS_PLAN_COUNTS:
+        raise AssertionError(f"explorer SMOKE_PLAN counts {plan}, the reference's "
+                             f"{ANALYSIS_PLAN_COUNTS}")
+    mutants = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, runs in ANALYSIS_MUTANT_RUNS.items():
+            ex = S.explore(f"mutant:{name}", ANALYSIS_N, seed=ANALYSIS_SEED, max_runs=120)
+            if ex.ok or ex.runs != runs:
+                raise AssertionError(f"mutant {name}: ok={ex.ok} after {ex.runs} runs, the "
+                                     f"reference detects it after {runs}")
+            cx = os.path.join(tmp, f"{name}.json")
+            S.write_counterexample(cx, ex)
+            rep = S.replay_counterexample(cx)
+            if not (rep["diverged"] and rep["reproduced"]):
+                raise AssertionError(f"mutant {name}: its counterexample did not replay: {rep}")
+            mutants[name] = {"runs": ex.runs, "choices": ex.divergence["choices"],
+                             "first_divergence": rep["first_divergence"]}
+    totals = [sum(c[i] for c in plan.values()) for i in range(3)]
+    res["explorer"] = {"plan": plan, "totals": totals, "mutants": mutants,
+                       "seconds": time.perf_counter() - t}
+    log(f"analysis (b) explorer on MockBackend [{card}]: SMOKE_PLAN {json.dumps(plan)} (runs, "
+        f"classes, pruned; total {totals}) as the reference's; mutants detected after "
+        f"{json.dumps({k: v['runs'] for k, v in mutants.items()})} runs, each counterexample "
+        f"replayed; {res['explorer']['seconds']:.3f} s")
+
+    mock = S.run_schedule("pipeline", ANALYSIS_N, ANALYSIS_SEED, [])
+    if before_card is not None:
+        before_card()
+    t = time.perf_counter()
+    tracker = S.RaceTracker()
+    run = S.run_pipeline_target(S.ScheduleController(), tracker, ANALYSIS_N, ANALYSIS_SEED,
+                                backend_factory=make_backend, epochs=ANALYSIS_EPOCHS,
+                                coin_rounds=ANALYSIS_COIN_ROUNDS)
+    secs = time.perf_counter() - t
+    submits = [e for e in tracker.events if e.kind == "submit"]
+    resolves = [e for e in tracker.events if e.kind == "resolve"]
+    kinds = collections.Counter(e.key.split(":", 1)[1] for e in submits)
+    if run.parts["error"]:
+        raise AssertionError(f"the pipeline target raised on the card: {run.parts['error']}")
+    if run.parts["batches_sha"] != mock.parts["batches_sha"]:
+        raise AssertionError("the pipeline target's batches differ from MockBackend's default "
+                             "schedule")
+    if not (len(resolves) == len(submits) > 0):
+        raise AssertionError(f"the tracker saw {len(submits)} submits and {len(resolves)} "
+                             "resolves")
+    res["card"] = {"seconds": secs, "submits": len(submits), "resolves": len(resolves),
+                   "device_dispatches": run.parts["device_dispatches"],
+                   "kinds": dict(sorted(kinds.items())), "batches_sha": run.parts["batches_sha"],
+                   "fingerprint": run.fingerprint, "canonical": run.canonical}
+    log(f"analysis (c) pipeline target N={ANALYSIS_N}, {ANALYSIS_EPOCHS} epochs, "
+        f"coin_rounds={ANALYSIS_COIN_ROUNDS} [{card}]: batches as MockBackend's default "
+        f"schedule ({run.parts['batches_sha'][:16]}), {len(submits)} submits and "
+        f"{len(resolves)} resolves tracked, device_dispatches "
+        f"{run.parts['device_dispatches']}, kinds {json.dumps(res['card']['kinds'])}; "
+        f"{secs:.3f} s")
+    return res
+
+
 def same(name: str, got, want) -> float:
     """max |kernel - plain|; raises unless the two are equal value for value
     (whether every bit agrees too, the signs of zeros included, is logged)."""
@@ -2677,7 +2820,7 @@ def kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict, n_pow: int) -
 
     ms_1 = time_ms(lambda: K.pow_fixed(x1, e), reps=5)
     ms = time_ms(lambda: K.pow_fixed(x, e), reps=5)
-    plain_ms = time_ms(lambda: K.pow_plain(x, e), reps=3)
+    plain_ms = time_ms(lambda: K.pow_plain(x, e), reps=SLOW_PLAIN_REPS)
     log(f"fq_rns_pow e=Q-2: {ms_1:.4f} ms at 1 lane, {ms:.4f} ms at {n_pow} lanes "
         f"(the epoch's widest launch), one call each")
     products = (e.bit_length() - 1) + (bin(e).count("1") - 1)
@@ -2707,11 +2850,12 @@ def tower_kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list
     src, ref = "hbbft_tpu_torch/csrc/tower_fused.cu", "hbbft_tpu/ops/tower_fused.py"
     rows = []
 
-    def row(name, replaces, n, products, rows_moved, fn, plain, got, want, reps=7):
+    def row(name, replaces, n, products, rows_moved, fn, plain, got, want, reps=7,
+            plain_reps=3):
         errs[name] = max(errs.get(name, 0.0), *(same(f"{name} (mean width)", g, w)
                                        for g, w in zip(got, want)))
         ms = time_ms(fn, reps=reps)
-        plain_ms = time_ms(plain, reps=min(reps, 3))
+        plain_ms = time_ms(plain, reps=plain_reps)
         bound_ms, bound_by = bound(n, products, products * MUL_EW_OPS, rows_moved)
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": f"{ref}:{replaces}",
@@ -2737,7 +2881,8 @@ def tower_kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list
     check_hard_widths(dev, rng, errs)
     m = tower_inputs(dev, rng, 12, n)
     row("hard_exp", 619, n, TF.analytic_hard_field_muls(), 24, lambda: TK.hard_exp(m),
-        lambda: TF.hard_plain(m), [TK.hard_exp(m)], [TF.hard_plain(m)], reps=5)
+        lambda: TF.hard_plain(m), [TK.hard_exp(m)], [TF.hard_plain(m)], reps=5,
+        plain_reps=SLOW_PLAIN_REPS)
     return rows
 
 
@@ -2780,7 +2925,7 @@ def limb_kernel_rows(dev, rng, errs: dict, launches: dict, lanes: dict) -> list:
         "name": "fq_limb_pow", **common, "replaces": "hbbft_tpu/ops/fq_pallas.py:255",
         "launches": launches["fq_limb_pow"], "max_abs_err": errs["fq_limb_pow"],
         "ms": time_ms(lambda: LK.pow_fixed(x, e), reps=5),
-        "plain_ms": time_ms(lambda: LK.pow_plain(x, e), reps=3),
+        "plain_ms": time_ms(lambda: LK.pow_plain(x, e), reps=SLOW_PLAIN_REPS),
         "bound_ms": bound_ms, "bound_by": bound_by, "lanes": n_pow,
         "serial_products": products,
     })
@@ -3095,6 +3240,49 @@ def run_traffic(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
     return res
 
 
+def run_analysis(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
+    """The analysis phase, the kernel launch counts zeroed just before its
+    card run (c) and read just after (the five epoch kernels and the three
+    plane kernels must have launched), then the five epoch kernels against
+    their plain versions at (c)'s mean and widest launches and the plane
+    kernels there and at its leaf lengths."""
+    import torch
+
+    from hbbft_tpu_torch.ops import gf256 as G, sha256 as S
+
+    t = time.perf_counter()
+    res = phase_analysis(card, before_card=reset_launches)
+    torch.cuda.synchronize()
+    secs["analysis_phase"] = time.perf_counter() - t
+    res["all_launches"] = _launch_counts(kernel_fns())
+    res["launches"], res["lanes"] = read_launches(
+        f"the analysis phase's card run (the explorer's pipeline target, N={ANALYSIS_N})",
+        EPOCH_KERNELS + RS_KERNELS)
+    res["widest"] = {**widest_launches(), "gf256_matmul": G.gf256_matmul.widest,
+                     "sha256_tagged": S.sha256_tagged.widest,
+                     "sha256_proofs": S.sha256_proofs.widest}
+    res["leaf_lengths"] = sorted(S.sha256_proofs.leaf_lengths)
+    t = time.perf_counter()
+    res["checked_widths"] = check_path_widths(
+        dev, rng, errs, res["launches"], res["lanes"], res["widest"], "analysis",
+        names=EPOCH_KERNELS)
+    res["plane_rows"] = rs_plane_rows(dev, rng, errs, res["launches"], res["lanes"],
+                                      n=ANALYSIS_N, widest=res["widest"],
+                                      leaf_lengths=res["leaf_lengths"], path="analysis")
+    secs["analysis_checks"] = time.perf_counter() - t
+    return res
+
+
+def log_analysis(res: dict, card: str) -> None:
+    lint, ex, c = res["lint"], res["explorer"], res["card"]
+    log(f"analysis [{card}]: (a) lint {lint['rules']} rules, {lint['new']} new findings, "
+        f"{lint['seconds']:.3f} s; (b) explorer totals {ex['totals']} (runs, classes, pruned), "
+        f"{ex['seconds']:.3f} s; (c) {c['resolves']} resolves = {c['submits']} submits, "
+        f"device_dispatches {c['device_dispatches']}, {c['seconds']:.3f} s")
+    log(f"analysis launches [{card}]: {json.dumps(res['launches'])}; lanes "
+        f"{json.dumps(res['lanes'])}; widest {json.dumps(res['widest'])}")
+
+
 def log_traffic(res: dict, card: str) -> None:
     a, cell = res["net"], res["cell"]
     log(f"traffic (a) N={N} [{card}]: {a['seconds']:.3f} s, seconds per epoch "
@@ -3179,6 +3367,10 @@ def main(argv=None) -> int:
                       help="build the kernels, then run the traffic phase (N=100 traffic "
                            "epochs with the controller, the controller x crash cell) and its "
                            "checks alone")
+    only.add_argument("--analysis-only", action="store_true",
+                      help="build the kernels, then run the analysis phase (lint, the "
+                           "explorer on the mock, the explorer's pipeline target on the "
+                           "card) and its checks alone")
     # the limb arm's child process (phase_limb_arm starts it)
     ap.add_argument("--limb-arm", nargs=2, metavar=("IN", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3229,7 +3421,8 @@ def main(argv=None) -> int:
             (args.object_only, "object_runtime", run_object, log_object),
             (args.dynamic_only, "dynamic", run_dynamic, log_dynamic),
             (args.recovery_only, "recovery", run_recovery, log_recovery),
-            (args.traffic_only, "traffic", run_traffic, log_traffic)) if flag]
+            (args.traffic_only, "traffic", run_traffic, log_traffic),
+            (args.analysis_only, "analysis", run_analysis, log_analysis)) if flag]
         if alone:  # one phase and its checks, after the build
             (name, run, log_fn), = alone
             res = run(args, dev, rng, {"fq_rns_mul": 0.0, "fq_rns_pow": 0.0}, card, secs)
@@ -3337,6 +3530,7 @@ def main(argv=None) -> int:
         dynamic_res = run_dynamic(args, dev, rng, errs, card, secs)
         recovery_res = run_recovery(args, dev, rng, errs, card, secs)
         traffic_res = run_traffic(args, dev, rng, errs, card, secs)
+        analysis_res = run_analysis(args, dev, rng, errs, card, secs)
 
         reset_launches()
         t = time.perf_counter()
@@ -3362,7 +3556,7 @@ def main(argv=None) -> int:
                                           / object_res["launches"][r["name"]])
                 r["object_widest_lanes"] = object_res["widest"][r["name"]]
             for tag, res in (("dynamic", dynamic_res), ("recovery", recovery_res),
-                             ("traffic", traffic_res)):
+                             ("traffic", traffic_res), ("analysis", analysis_res)):
                 r[f"{tag}_launches"] = res["all_launches"][r["name"]]
                 if r["name"] in res["widest"]:
                     r[f"{tag}_mean_lanes"] = res["lanes"][r["name"]] / res["launches"][r["name"]]
@@ -3390,7 +3584,7 @@ def main(argv=None) -> int:
         "stacked_arm": stacked_res, "limb_arm": limb_res, "sig_path": sig_res,
         "epoch": epoch_res, "rs_kill_switch": kill_res, "coin_epoch": coin_res, "era": era_res,
         "object_runtime": object_res, "dynamic": dynamic_res, "recovery": recovery_res,
-        "traffic": traffic_res,
+        "traffic": traffic_res, "analysis": analysis_res,
         "bench": bench_res, "phase_seconds": secs,
         "path_device_dispatches": c.device_dispatches, "path_pairing_checks": c.pairing_checks,
         "path_rlc_groups": c.rlc_groups, "kernels": rows, "launch_widths_log2": widths,
@@ -3423,6 +3617,7 @@ def main(argv=None) -> int:
     log_dynamic(dynamic_res, card)
     log_recovery(recovery_res, card)
     log_traffic(traffic_res, card)
+    log_analysis(analysis_res, card)
     log(f"phase seconds [{card}]: {json.dumps(secs)}")
     log(f"path device_dispatches={c.device_dispatches} pairing_checks={c.pairing_checks} "
         f"rlc_groups={c.rlc_groups} peak_memory_bytes={result['peak_memory_bytes']} [{card}]")

@@ -357,16 +357,82 @@ class CryptoBackend(abc.ABC):
 class MockBackend(CryptoBackend):
     """Fast insecure backend for protocol-logic tests (mock bilinear group).
 
-    The batched verifies are plain loops; the deferred entry points are the
-    ABC's defaults.  (The JAX package's copy also routes them through a
-    chunked out-of-order pipeline for its schedule explorer, which the port
-    does not have yet.)
+    ``pipeline_chunk`` (None = off) routes the batched verifies through
+    the SAME DispatchPipeline machinery the device backend uses
+    (ops/pipeline.py), splitting each batch into chunks whose per-chunk
+    results are delivered via deferred callbacks resolved in a
+    deterministic OUT-OF-ORDER permutation.  The CPU tests thereby
+    exercise the pipeline's core safety claim — delivery callbacks write
+    disjoint slots, so completion order cannot change results — without
+    the card; the schedule explorer (analysis/schedules.py) picks the
+    permutations through ``resolve_order``.
     """
+
+    #: chunk size for the simulated-async verify path (None = plain loop)
+    pipeline_chunk: Optional[int] = None
+    #: schedule-explorer hook (analysis/schedules.py): ``resolve_order(k)
+    #: -> List[int]`` picks the resolution permutation of the k pending
+    #: chunks; None keeps the legacy deterministic last-submitted-first
+    resolve_order: Optional[Callable[[int], List[int]]] = None
+    #: per-chunk resolution listeners ``cb(lo, results)`` — fired from the
+    #: delivery callback (i.e. at RESOLVE time, mid-flush); the explorer's
+    #: seeded traffic mutation rides this
+    chunk_listeners: Sequence[Callable] = ()
 
     def __init__(self) -> None:
         super().__init__(MockGroup())
+        from hbbft_tpu_torch.ops.pipeline import DispatchPipeline
 
-    def verify_sig_shares(self, items) -> List[bool]:
+        # depth large enough to hold every chunk: the mock resolves them
+        # all at once, permuted, instead of streaming
+        self._pipe = DispatchPipeline(counters=None, tracer_ref=None, depth_fn=lambda: 1 << 30)
+        #: submission-order batch numbering for chunk identity (the
+        #: explorer's event keys; schedule-independent by construction)
+        self._batch_seq = 0
+
+    def _piped_submit(self, items: Sequence, compute: Callable[[Sequence], List]):
+        """Submit chunked deferred deliveries; returns (out, finish) where
+        ``finish()`` resolves every pending chunk in a deterministic
+        OUT-OF-ORDER permutation — last-submitted-first, or whatever the
+        ``resolve_order`` hook picks — and returns ``out`` populated."""
+        step = self.pipeline_chunk or len(items) or 1
+        out: List[Any] = [None] * len(items)
+        b = self._batch_seq
+        self._batch_seq += 1
+        for ci, lo in enumerate(range(0, len(items), step)):
+            chunk = items[lo : lo + step]
+
+            def deliver(res, lo=lo):
+                out[lo : lo + len(res)] = res
+                for cb in self.chunk_listeners:
+                    cb(lo, res)
+
+            self._pipe.submit(
+                lambda chunk=chunk: compute(chunk),
+                fetch=None,
+                kind=f"b{b}.c{ci}",
+                items=len(chunk),
+                on_result=deliver,
+            )
+
+        def finish():
+            self._pipe.flush(order=self._resolution_order())
+            return out
+
+        return out, finish
+
+    def _resolution_order(self) -> List[int]:
+        k = len(self._pipe)
+        if self.resolve_order is not None:
+            return self.resolve_order(k)
+        return list(reversed(range(k)))
+
+    def _piped(self, items: Sequence, compute: Callable[[Sequence], List]) -> List:
+        """Chunked deferred delivery with deterministic out-of-order
+        resolution (chunks resolve last-submitted-first)."""
+        return self._piped_submit(items, compute)[1]()
+
+    def _sig_compute(self, items) -> Callable[[Sequence], List[bool]]:
         # Inlined mock math (e(a,b) = a·b over Z_r): the generic loop costs
         # several Python frames per item.  Same equation as
         # PublicKeyShare.verify_sig_share.
@@ -375,26 +441,45 @@ class MockBackend(CryptoBackend):
         c.pairing_checks += len(items)
         r = self.group.r
         h2 = self.group.hash_to_g2
-        return self._traced(
-            "pairing",
-            len(items),
-            lambda: [share.el % r == (pk.el * h2(doc)) % r for pk, doc, share in items],
-        )
+        return lambda chunk: [share.el % r == (pk.el * h2(doc)) % r for pk, doc, share in chunk]
 
-    def verify_dec_shares(self, items) -> List[bool]:
+    def _dec_compute(self, items) -> Callable[[Sequence], List[bool]]:
         # Same equation as PublicKeyShare.verify_decryption_share.
         c = self.counters
         c.dec_shares_verified += len(items)
         c.pairing_checks += len(items)
         r = self.group.r
-        return self._traced(
-            "pairing",
-            len(items),
-            lambda: [
-                (share.el * ct.hash_point()) % r == (pk.el * ct.w) % r
-                for pk, ct, share in items
-            ],
-        )
+        return lambda chunk: [
+            (share.el * ct.hash_point()) % r == (pk.el * ct.w) % r for pk, ct, share in chunk
+        ]
+
+    def verify_sig_shares(self, items) -> List[bool]:
+        compute = self._sig_compute(items)
+        if self.pipeline_chunk:
+            return self._traced("pairing", len(items), lambda: self._piped(items, compute))
+        return self._traced("pairing", len(items), lambda: compute(items))
+
+    def verify_dec_shares(self, items) -> List[bool]:
+        compute = self._dec_compute(items)
+        if self.pipeline_chunk:
+            return self._traced("pairing", len(items), lambda: self._piped(items, compute))
+        return self._traced("pairing", len(items), lambda: compute(items))
+
+    def verify_sig_shares_deferred(self, items):
+        """Deferred twin through the simulated-async pipeline when
+        ``pipeline_chunk`` is set, so the CPU tests exercise the engine's
+        cross-round overlap seam (submit → assemble elsewhere → resolve
+        out of order) without the card."""
+        if not self.pipeline_chunk:
+            return super().verify_sig_shares_deferred(items)
+        _, finish = self._piped_submit(items, self._sig_compute(items))
+        return lambda: self._traced("pairing", len(items), finish)
+
+    def verify_dec_shares_deferred(self, items):
+        if not self.pipeline_chunk:
+            return super().verify_dec_shares_deferred(items)
+        _, finish = self._piped_submit(items, self._dec_compute(items))
+        return lambda: self._traced("pairing", len(items), finish)
 
 
 class CpuBackend(CryptoBackend):

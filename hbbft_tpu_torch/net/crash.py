@@ -368,8 +368,8 @@ class CrashManager:
     def on_deliver(self, net: "VirtualNet", msg: "NetMessage") -> None:
         """WAL a delivery to a crash-tracked node (pre-handling, with the
         shared rng's pre-handling state)."""
-        # live WAL append vs replay read is the axis's one seam: _restart
-        # only runs between cranks, never concurrently
+        # lint: allow[seam-race] live WAL append vs replay read is the axis's
+        # one seam: _restart only runs between cranks, never concurrently
         t = self.tracks.get(msg.to)
         if t is not None and t.state == "up" and t.pending:
             t.wal.append(("m", net.rng.getstate(), msg.sender, msg.payload))
@@ -393,8 +393,8 @@ class CrashManager:
         delivered; a mismatch marks the recovery diverged and lets the
         message through (peers will fault the double-send, which is the
         point: divergence must be visible evidence)."""
-        # _restart sets _replaying around a synchronous replay loop; the
-        # crank loop is single-threaded so no interleaving
+        # lint: allow[seam-race] _restart sets _replaying around a synchronous
+        # replay loop; the crank loop is single-threaded so no interleaving
         if self._replaying == node.id:
             t = self.tracks[node.id]
             if t.sent_cursor < len(t.sent):
@@ -582,10 +582,10 @@ class CrashManager:
         parked_inputs, t.parked_inputs = t.parked_inputs, []
         for inp in parked_inputs:
             net.send_input(nid, inp)
-        # post-replay env reattachment: the WAL loop above has already
-        # sealed replayed state; listeners exist precisely so the
-        # environment (traffic driver, controller) can re-install its
-        # checkpoint-detached hooks on the fresh instance
+        # lint: allow[replay-purity] post-replay env reattachment: the WAL
+        # loop above has already sealed replayed state; listeners exist
+        # precisely so the environment (traffic driver, controller) can
+        # re-install its checkpoint-detached hooks on the fresh instance
         for fn in self.restart_listeners:
             try:
                 fn(net, nid, node.algorithm)

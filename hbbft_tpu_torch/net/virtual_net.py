@@ -15,8 +15,9 @@ scheduling, adversaries, and protocol RNG needs.
 The port's copy of the JAX package's ``net/virtual_net.py``, with its
 crash/restart axis (``net/crash.py``, :meth:`NetBuilder.crashes`), its
 critical-path recorder, metrics-log and traffic-driver hooks and its
-scenario label.  The schedule explorer's hooks (the ``controlled``
-scheduler and race probe) come with the port's ``analysis/``.  Unlike the reference, :meth:`NetBuilder.build`
+scenario label, and the schedule explorer's hooks (the ``controlled``
+scheduler, ``crank_chooser`` and ``race_probe``, driven by
+``analysis/schedules.py``).  Unlike the reference, :meth:`NetBuilder.build`
 defaults to ``TorchBackend()`` on the card; the mock is asked for by name.
 """
 
@@ -207,6 +208,12 @@ class VirtualNet:
     #: Environment, not state: whole-net snapshots drop it (the driver
     #: holds live callables) and restore falls back to None.
     traffic = None
+    #: schedule-explorer hooks (analysis/schedules.py) — environment, not
+    #: state.  With ``scheduler="controlled"``, ``crank_chooser(net)``
+    #: picks the queue index to deliver next; ``race_probe`` (a
+    #: RaceTracker) records crank events with causal enqueue edges.
+    crank_chooser = None
+    race_probe = None
     #: critical-path recorder (obs/critpath.CritPathRecorder) and
     #: per-epoch series (obs/timeseries.MetricsLog) — environment, not
     #: state: both hold open-ended evidence rings the harness owns, so
@@ -222,6 +229,8 @@ class VirtualNet:
     tracer = None
     _SNAPSHOT_ENV_ATTRS = (
         "traffic",
+        "crank_chooser",
+        "race_probe",
         "critpath",
         "metrics_log",
         "event_log",
@@ -398,7 +407,9 @@ class VirtualNet:
             raise self._crank_error(f"crank limit {self.crank_limit} exceeded")
 
         scheduler = self.adversary.scheduler_override or self.scheduler
-        if scheduler == "random":
+        if scheduler == "controlled" and self.crank_chooser is not None:
+            idx = self.crank_chooser(self)
+        elif scheduler == "random":
             idx = self.rng.randrange(len(self.queue))
         else:
             idx = 0
@@ -416,6 +427,9 @@ class VirtualNet:
             )
         if self.crash is not None:
             self.crash.on_deliver(self, msg)
+        probe = self.race_probe
+        if probe is not None:
+            probe.begin_crank(msg)
         tr = self.tracer
         if tr is None:
             step = node.algorithm.handle_message(msg.sender, msg.payload, rng=self.rng)
@@ -443,6 +457,8 @@ class VirtualNet:
                 deferred=len(step.work),
             )
         self._process_step(node, step)
+        if probe is not None:
+            probe.end_crank()
         if self.crash is not None:
             self.crash.after_crank(self)
         return msg.to, step
@@ -534,6 +550,12 @@ class VirtualNet:
         once deliverable."""
         if self.crash is not None and self.crash.on_enqueue(self, msg):
             return  # recipient is down: parked until its restart
+        if self.race_probe is not None:
+            # stable content key + causal edge to the enqueuing crank
+            # lint: allow[replay-purity] explorer probe: tags carry
+            # observer-only metadata (never read by protocol code), and a
+            # restored net replays unprobed (race_probe falls back to None)
+            self.race_probe.tag_message(msg)
         if self.schedule is not None:
             delay = self.schedule.on_send(self, msg)
             if delay is None:
@@ -640,7 +662,7 @@ class NetBuilder:
         return self
 
     def scheduler(self, mode: str) -> "NetBuilder":
-        assert mode in ("random", "first")
+        assert mode in ("random", "first", "controlled")
         self._scheduler = mode
         return self
 

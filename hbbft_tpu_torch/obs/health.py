@@ -396,9 +396,11 @@ class HealthReporter:
     once per stall episode; progress re-arms the detector.  A traffic
     driver's fields (mempool depth, commit p99, committed and dropped
     transactions, the controller's B and SLO compliance) ride ``tick``'s
-    keyword extras.  The reference's ``gate_fn`` (no caller in either
-    package) and ``shard_stats_fn`` (a mesh backend's balance, with the
-    port's ``parallel/``) are left out.
+    keyword extras.  ``shard_stats_fn`` (a sharded backend's
+    ``shard_stats``) contributes the cumulative ``shard_imbalance`` ratio
+    (max/mean per-device dispatches; 1.0 = balanced) and the per-device
+    dispatch tallies to every heartbeat.  The reference's ``gate_fn`` (no
+    caller in either package) is left out.
     """
 
     def __init__(
@@ -409,8 +411,10 @@ class HealthReporter:
         stall_report_fn: Optional[Callable[[], Dict[str, Any]]] = None,
         sink: Callable[[Dict[str, Any]], None] = _print_sink,
         clock: Callable[[], float] = time.monotonic,
+        shard_stats_fn: Optional[Callable[[], Dict[str, Any]]] = None,
     ) -> None:
         self.interval_s = interval_s
+        self.shard_stats_fn = shard_stats_fn
         self.stall_timeout_s = stall_timeout_s
         self.counters_fn = counters_fn
         self.stall_report_fn = stall_report_fn
@@ -528,6 +532,14 @@ class HealthReporter:
                 dev = delta.get("device_seconds", 0.0)
                 if ovl and dev > 0:
                     beat["overlap_fraction"] = round(ovl / dev, 4)
+        if self.shard_stats_fn is not None:
+            try:
+                st = self.shard_stats_fn()
+            except Exception:  # a heartbeat must never raise on a hook
+                st = None
+            if st:
+                beat["shard_imbalance"] = st.get("shard_imbalance")
+                beat["shard_dispatches"] = st.get("shard_dispatches")
         beat.update(extra)
         self.beats.append(beat)
         self.sink(beat)

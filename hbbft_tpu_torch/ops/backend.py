@@ -387,8 +387,13 @@ class TorchBackend(CryptoBackend):
         return [1 + int.from_bytes(buf[o : o + nb], "big") % top for o in range(0, len(buf), nb)]
 
     def _rlc_observed_rate(self) -> float:
+        # lint: allow[seam-race] the observation window only sizes the NEXT
+        # batch's groups, never verdicts (False comes solely from exact
+        # per-item pairing); c=0 bit-identity vs fixed groups is asserted
+        # by the tests and the race explorer sweeps the deferred seam
         if self._rlc_obs_items <= 0:
             return 0.0
+        # lint: allow[seam-race] same window invariant as above: sizing-only
         return self._rlc_obs_rejects / self._rlc_obs_items
 
     def _rlc_adaptive_cap(self) -> Optional[int]:

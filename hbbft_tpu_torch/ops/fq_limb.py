@@ -115,7 +115,8 @@ def from_ints(xs) -> np.ndarray:
 def to_int(limbs) -> int:
     """Exact value of a (possibly lazy, negative-limbed) vector, mod Q."""
     val = 0
-    for limb in reversed(np.rint(to_numpy(limbs)).astype(np.int64).reshape(-1).tolist()):
+    ints = np.rint(to_numpy(limbs)).astype(np.int64).reshape(-1).tolist()
+    for limb in reversed(ints):
         val = (val << BITS) + limb
     return val % Q
 

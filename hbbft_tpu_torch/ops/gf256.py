@@ -51,6 +51,8 @@ def expand_gf_matrix(m: np.ndarray) -> np.ndarray:
     byte ``r``; input bit-column ``8*i + j`` is bit ``j`` of input byte ``i``.
     """
     gf = gf256()
+    # lint: allow[deferred-fetch] host-constant prep: the input is a host
+    # numpy GF matrix (encode/Lagrange rows), never a device value
     m = np.asarray(m, dtype=np.uint8)
     r, k = m.shape
     out = np.zeros((8 * r, 8 * k), dtype=np.int8)
@@ -230,8 +232,14 @@ class TorchRSCodec(RSCodec):
         return torch.as_tensor(np.require(arr, np.uint8, ("C", "W")), device=self.device)
 
     def _parity(self, mat: np.ndarray) -> np.ndarray:
+        # lint: allow[deferred-fetch] synchronous golden/bench entry point —
+        # the engine's hot path routes through ops/backend.py, which fetches
+        # via the DispatchPipeline seam
         return gf256_matmul(self._encode_words, self._bytes(mat)).cpu().numpy()
 
     def _interpolate(self, xs, missing, stack: np.ndarray) -> np.ndarray:
         words = self._decode_cache.get(xs, missing)
+        # lint: allow[deferred-fetch] synchronous golden/bench entry point —
+        # the engine's hot path routes through ops/backend.py, which fetches
+        # via the DispatchPipeline seam
         return gf256_matmul(words, self._bytes(stack)).cpu().numpy()

@@ -35,8 +35,6 @@ import time
 from collections import deque
 from typing import Any, Callable, List, Optional
 
-from hbbft_tpu_torch.utils.tree import tree_map
-
 
 def hostpipe_enabled() -> bool:
     """Kill switch for the HOST half of the epoch: the array engine's
@@ -73,7 +71,10 @@ def pipeline_depth() -> int:
 def fetch_to_host(out):
     """THE deferred-fetch seam: copy a dispatch's output tree (nested
     tuples of tensors) to host numpy.  Blocks until the device work that
-    produced it completes."""
+    produced it completes.  (Imported here: the module itself stays
+    import-light, so the mock pipeline and the explorer need no torch.)"""
+    from hbbft_tpu_torch.utils.tree import tree_map
+
     return tree_map(lambda t: t.cpu().numpy(), out)
 
 

@@ -192,17 +192,19 @@ class QueueingHoneyBadger(ConsensusProtocol):
         b = (
             self.batch_size
             if self.batch_size_provider is None
-            # detached during replay by construction: restore drops the
-            # provider and the restart listener reattaches it only after
-            # the WAL loop finishes, so replayed proposals fall back to the
-            # logged ("batch_size", B) input channel
+            # lint: allow[replay-purity] detached during replay by
+            # construction: restore drops the provider and the restart
+            # listener reattaches it only after the WAL loop finishes, so
+            # replayed proposals fall back to the logged ("batch_size", B)
+            # input channel — the replay-safe path for B
             else int(self.batch_size_provider())
         )
         sample = self.queue.choose(self.rng, b)
         if self.sample_listener is not None:
-            # observer-only: the listener sees the sample and its return
-            # value is ignored; a restored node replays unsampled (the
-            # listener falls back to None) and the driver reattaches it
-            # after the replay through the crash manager's restart listeners
+            # lint: allow[replay-purity] observer-only: the listener sees the
+            # sample and its return value is ignored; a restored node replays
+            # unsampled (the listener falls back to None) and the driver
+            # reattaches it after the replay through the crash manager's
+            # restart listeners
             self.sample_listener(sample)
         return self._wrap(self.dhb.propose(sample, self.rng))

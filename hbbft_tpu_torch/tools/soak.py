@@ -21,6 +21,10 @@ Usage::
                                                  # reproduce a failed cell
                                                  # from its record (cell +
                                                  # seed + fingerprint) alone
+    python -m hbbft_tpu_torch.tools.soak --race-cex cx.json
+                                                 # fold a race-explorer
+                                                 # minimized counterexample
+                                                 # in as a first-class cell
 
 Cell syntax: ``attack:schedule[:churn[:crash[:traffic]]]`` with names
 from the net/scenarios.py registries (missing axes default to "none").
@@ -32,9 +36,9 @@ Exit status: 0 when every cell passed its verdict; 1 when any failed
 Backends (``--backend``, one fresh backend per cell): ``torch`` (the
 default) is ``TorchBackend()`` on the card, and raises without one;
 ``cpu`` is ``TorchBackend(device="cpu")``; ``mock`` is ``MockBackend()``,
-the protocol logic with no real crypto.  ``--race-cex`` (a schedule
-explorer's counterexample as a cell) needs ``analysis/schedules.py``,
-which the port does not have yet: it exits 1 with a message saying so.
+the protocol logic with no real crypto.  A ``--race-cex`` cell replays
+the explorer's counterexample on the targets' own ``MockBackend``
+(``analysis/schedules.py``), whatever ``--backend`` says.
 """
 
 from __future__ import annotations
@@ -146,6 +150,26 @@ def run_one(cell: Cell, clean_p99: dict, crank_limit: int, backend: str) -> dict
     return row
 
 
+def run_race_cex(path: str) -> dict:
+    """A race-explorer minimized counterexample as a first-class cell:
+    the cell passes when the seams no longer diverge on the recorded
+    schedule (a reproduced divergence is a deterministic, still-open
+    failure — reported with the recorded vs observed fingerprints)."""
+    from hbbft_tpu_torch.analysis import schedules
+
+    t0 = time.perf_counter()
+    rep = schedules.replay_counterexample(path)
+    return {
+        "cell": f"race-cex:{Path(path).name}",
+        "kind": "race_counterexample",
+        "ok": not rep["diverged"],
+        "diverged": rep["diverged"],
+        "reproduced": rep["reproduced"],
+        "first_divergence": rep["first_divergence"],
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
 def write_failed(fail_dir: str, cell: Cell, row: dict):
     """A replayable failed-cell record: the cell (with its seed) + the
     observed fingerprint — everything --replay needs.  When the run
@@ -206,20 +230,13 @@ def main(argv=None) -> int:
                     help="replayable records of failed cells land here")
     ap.add_argument("--replay", help="re-run a failed-cell record; exit 2 on fingerprint mismatch")
     ap.add_argument("--race-cex", nargs="*", default=(),
-                    help="race-explorer counterexample files to fold in as cells "
-                         "(needs analysis/schedules.py, not yet in the port)")
+                    help="race-explorer counterexample files to fold in as cells")
     ap.add_argument(
         "--backend", choices=("torch", "cpu", "mock"), default="torch",
         help="torch = TorchBackend() on the card (raises without one); cpu = "
         "TorchBackend(device='cpu'); mock = MockBackend() (no real crypto)",
     )
     args = ap.parse_args(argv)
-
-    if args.race_cex:
-        raise SystemExit(
-            "soak: --race-cex replays a schedule explorer's counterexample, "
-            "which needs analysis/schedules.py; the port does not have it yet"
-        )
 
     if args.replay:
         return replay_record(args.replay, args.crank_limit, args.backend)
@@ -247,21 +264,27 @@ def main(argv=None) -> int:
                 )
                 rows.append(run_one(cell, clean_p99, args.crank_limit, args.backend))
 
+    for path in args.race_cex:
+        rows.append(run_race_cex(path))
+
     for row in rows:
         ok = row["ok"]
         name = row["cell"]
-        extra = (
-            f" epochs={row.get('epochs_committed')}"
-            f" eras={row.get('eras')}"
-            f" crashes={row.get('crashes')}/{row.get('restarts')}"
-            f" tx={row.get('tx_committed')} p99={row.get('commit_p99')}"
-        )
-        if not row.get("p99_ok", True):
-            extra += f" P99-UNBOUNDED(clean={row.get('clean_p99')})"
-        if "fingerprint_stable" in row:
-            extra += f" stable={row['fingerprint_stable']}"
-        if row.get("error"):
-            extra += f" error={row['error']!r}"
+        if row.get("kind") == "race_counterexample":
+            extra = f" diverged={row['diverged']} reproduced={row['reproduced']}"
+        else:
+            extra = (
+                f" epochs={row.get('epochs_committed')}"
+                f" eras={row.get('eras')}"
+                f" crashes={row.get('crashes')}/{row.get('restarts')}"
+                f" tx={row.get('tx_committed')} p99={row.get('commit_p99')}"
+            )
+            if not row.get("p99_ok", True):
+                extra += f" P99-UNBOUNDED(clean={row.get('clean_p99')})"
+            if "fingerprint_stable" in row:
+                extra += f" stable={row['fingerprint_stable']}"
+            if row.get("error"):
+                extra += f" error={row['error']!r}"
         # the --smoke transcript is identical across runs: wall time
         # stays in the JSON rows only
         wall = "" if args.smoke else f" ({row['wall_s']}s)"

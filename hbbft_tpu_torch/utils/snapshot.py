@@ -300,9 +300,9 @@ class _Decoder:
             return self.backend.group
         if tag == "rng":
             _, idx, version, state, gauss = node
-            # not an entropy draw: the fresh Random is a shell whose state
-            # is overwritten on the next line by the snapshot's
-            # (version, state, gauss) tuple
+            # lint: allow[replay-purity] not an entropy draw: the fresh
+            # Random is a shell whose state is overwritten on the next
+            # line by the snapshot's (version, state, gauss) tuple
             r = random.Random()
             r.setstate((version, tuple(state), self.decode(gauss)))
             self.objects[idx] = r

@@ -312,8 +312,9 @@ def test_dynamic_phase_at_a_tiny_size(smoke, capsys):
 def test_recovery_phase_on_the_mock(smoke, capsys):
     """The recovery phase's three parts at their card shapes with both arms
     on the port's MockBackend (the same calls the card makes, no real
-    crypto): (a) the simulation straight through, split at epoch 5 and
-    resumed in a fresh Simulation, ten equal batches on every node; (b)
+    crypto): (a) the simulation straight through, split at epoch
+    RECOVERY_SPLIT and resumed in a fresh Simulation, RECOVERY_SIM's equal
+    batches on every node; (b)
     the crash axis, one crash and one restart of node 3 replayed without a
     fault; (c) the first matrix attack's cell passes.  The timed functions
     are restored after."""
@@ -394,4 +395,29 @@ def test_traffic_phase_on_the_cpu(smoke, capsys):
     out = capsys.readouterr().out
     assert "every node output the same Batch of the sampled proposals" in out
     assert "TorchBackend equals MockBackend" in out
+    json.dumps(res)
+
+
+def test_analysis_phase_on_the_mock(smoke, capsys):
+    """The analysis phase at its card shape with (c) on the port's
+    MockBackend: (a) the lint over hbbft_tpu_torch/ clean against the empty
+    baseline, (b) the explorer's SMOKE_PLAN with the reference's counts and
+    every mutant detected and replayed, (c) the pipeline target tracked,
+    its batches those of the default schedule, as many resolves as submits;
+    then the phase's result keys."""
+    from hbbft_tpu_torch.crypto.backend import MockBackend
+
+    called = []
+    res = smoke.phase_analysis("cpu", make_backend=MockBackend,
+                               before_card=lambda: called.append(True))
+    assert called == [True] and set(res) == {"lint", "explorer", "card"}
+    assert res["lint"]["new"] == 0 and res["lint"]["rules"] >= 10
+    assert res["explorer"]["totals"] == [145, 121, 98]
+    assert {k: v["runs"] for k, v in res["explorer"]["mutants"].items()} == \
+        smoke.ANALYSIS_MUTANT_RUNS
+    card = res["card"]
+    assert card["resolves"] == card["submits"] > 0
+    out = capsys.readouterr().out
+    assert "0 new finding(s) against the empty baseline" in out
+    assert "batches as MockBackend's default schedule" in out
     json.dumps(res)

@@ -10,8 +10,10 @@ reference test's own checks hold in each and the two runs' soak rows,
 ``SoakResult.fingerprint()``s (batch digest, fault log, tracker
 fingerprint, crash trace), series rows, controller decisions and
 why-stalled reports are equal call for call.  The soak CLI replays a
-record to exit 0 and flags a wrong fingerprint with exit 2, and without a
-backend both ``run_cell`` and the CLI take the card.  The composed-cell
+record to exit 0, flags a wrong fingerprint with exit 2 and folds a race
+explorer's counterexample in as a ``race-cex:<file>`` row (the
+reference's row), and without a backend both ``run_cell`` and the CLI
+take the card.  The composed-cell
 stability case's second seed runs behind ``-m slow``.
 """
 
@@ -114,8 +116,37 @@ def test_soak_cli_replay_round_trip(tmp_path, capsys):
     bad.write_text(json.dumps(doc))
     assert soak.main(["--backend", "mock", "--replay", str(bad)]) == 2
     assert "DIVERGED" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="analysis/schedules.py"):
-        soak.main(["--backend", "mock", "--race-cex", str(rec)])
+    # a race-explorer counterexample folds in as a cell of its own: the
+    # mutant's divergence still reproduces, so the row fails (exit 1) and
+    # equals the reference's row for the same file
+    from hbbft_tpu_torch.analysis import schedules
+
+    cx = tmp_path / "cx.json"
+    schedules.write_counterexample(cx, schedules.explore("mutant:counter", 4, seed=0))
+    out2 = tmp_path / "cex.json"
+    rc = soak.main(["--backend", "mock", "--cells", spec, "--n", "4", "--epochs", "6",
+                    "--seeds", "6", "--race-cex", str(cx), "--json", str(out2)])
+    assert rc == 1
+    assert "FAIL race-cex:cx.json diverged=True reproduced=True" in capsys.readouterr().out
+    cell_row, cex_row = json.loads(out2.read_text())["rows"]
+    assert cell_row["ok"] and cell_row["fingerprint"] == row["fingerprint"]
+    ref_soak = _reference_soak()
+    ref_row = ref_soak.run_race_cex(str(cx))
+    assert {k: v for k, v in cex_row.items() if k != "wall_s"} == json.loads(json.dumps(
+        {k: v for k, v in ref_row.items() if k != "wall_s"}))
+    assert (cex_row["kind"], cex_row["ok"]) == ("race_counterexample", False)
+
+
+def _reference_soak():
+    """The JAX package's soak CLI (``tools/soak.py``), imported as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "tools" / "soak.py"
+    spec = importlib.util.spec_from_file_location("reference_soak", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def test_run_cell_defaults_to_the_card():

@@ -5,7 +5,7 @@ A test module of the JAX package (``tests/test_traffic.py`` and the like)
 is loaded twice from its source: once as it is, and once with every
 ``hbbft_tpu.`` import pointed at ``hbbft_tpu_torch.`` (plus a few named
 text substitutions where the port's surface differs, such as its soak
-CLI's module path).  :func:`twin` then calls the same test function from
+CLI's module path, or the ``hbbft_tpu/`` path scopes of the lint tests).  :func:`twin` then calls the same test function from
 both copies, each with a fresh ``monkeypatch`` and its own ``tmp_path``,
 so the reference test's own assertions run on the port too.
 
@@ -16,6 +16,9 @@ the soak results' rows and fingerprints, the per-epoch series rows, the
 engine's Batches, every arrival wave, proposal sample and admission
 outcome, and every why-stalled report.  The two records must be equal
 call for call: the work is integer and seeded, so the tolerance is zero.
+A module may name its own calls to record instead (``recorded=``): the
+analysis twins record lint findings, state inventories and the lint
+CLI's JSON document.
 
 Where a reference test builds a net without naming a backend (the JAX
 package's ``NetBuilder`` defaults to its ``MockBackend``), the port's copy
@@ -35,7 +38,12 @@ TESTS = Path(__file__).resolve().parent
 
 #: (module under the package root, class or None, attribute) whose
 #: results are recorded; a class attribute is patched on the class, a
-#: module function on the module and on the test copy's globals
+#: module function on the module and on the test copy's globals.  The
+#: module may instead be a {package root: module name} map (a module
+#: outside the package, such as the reference's ``tools/lint.py``), or
+#: None for a function of the test module itself.  An optional fourth
+#: element ``pick(args, result)`` names what of a call is recorded (by
+#: default its result); a property is recorded on each read.
 RECORDED = (
     ("traffic.driver", "_TrafficBase", "report"),
     ("traffic.tracker", "TxTracker", "fingerprint"),
@@ -72,29 +80,42 @@ class Recorder:
         text = norm(value)
         self.calls.append((label, hashlib.sha256(text.encode()).hexdigest(), text[:400]))
 
-    def wrap(self, label: str, fn):
+    def wrap(self, label: str, fn, pick=None):
         def recorded(*args, **kwargs):
             out = fn(*args, **kwargs)
-            self.add(label, out)
+            self.add(label, out if pick is None else pick(args, out))
             return out
 
         return recorded
 
 
-def _patch(mp: pytest.MonkeyPatch, root: str, mod, rec: Recorder) -> None:
-    for path, cls_name, attr in RECORDED:
-        m = importlib.import_module(f"{root}.{path}")
+def _patch(mp: pytest.MonkeyPatch, root: str, mod, rec: Recorder, recorded) -> None:
+    for path, cls_name, attr, *pick in recorded:
+        pick = pick[0] if pick else None
+        if path is None:
+            if hasattr(mod, attr):
+                mp.setattr(mod, attr, rec.wrap(f"test.{attr}", getattr(mod, attr)))
+            continue
+        if isinstance(path, dict):
+            m = importlib.import_module(path[root])
+            path = path["hbbft_tpu"]
+        else:
+            m = importlib.import_module(f"{root}.{path}")
         label = f"{path}.{cls_name + '.' if cls_name else ''}{attr}"
         if cls_name is None:
             fn = getattr(m, attr)
-            wrapped = rec.wrap(label, fn)
+            wrapped = rec.wrap(label, fn, pick)
             mp.setattr(m, attr, wrapped)
             for name, val in list(vars(mod).items()):
                 if val is fn:
                     mp.setattr(mod, name, wrapped)
         else:
             cls = getattr(m, cls_name)
-            mp.setattr(cls, attr, rec.wrap(label, cls.__dict__[attr]))
+            member = cls.__dict__[attr]
+            if isinstance(member, property):
+                mp.setattr(cls, attr, property(rec.wrap(label, member.fget, pick)))
+            else:
+                mp.setattr(cls, attr, rec.wrap(label, member, pick))
 
 
 def _port_mock_default(mp: pytest.MonkeyPatch) -> None:
@@ -115,7 +136,8 @@ def _port_mock_default(mp: pytest.MonkeyPatch) -> None:
 class TwinModule:
     """One reference test module, loaded as the reference and as the port."""
 
-    def __init__(self, filename: str, port_subs=()) -> None:
+    def __init__(self, filename: str, port_subs=(), recorded=RECORDED) -> None:
+        self.recorded = recorded
         src = (TESTS / filename).read_text()
         port_src = src.replace("hbbft_tpu.", "hbbft_tpu_torch.")
         for a, b in port_subs:
@@ -152,7 +174,7 @@ class TwinModule:
         rec = Recorder()
         mp = pytest.MonkeyPatch()
         try:
-            _patch(mp, root, mod, rec)
+            _patch(mp, root, mod, rec, self.recorded)
             if root == "hbbft_tpu_torch":
                 _port_mock_default(mp)
             args = dict(kwargs)
