@@ -44,7 +44,7 @@ Phases (any failure exits non-zero and prints no result line):
              process with HBBFT_TPU_FQ_IMPL=limb (the facade binds at
              import) runs, on phase 3's keys and items (passed through a file
              under chiprun_out/), the ciphertext checks, the 10k shares, the
-             stacked-arm pass's 19,800 share verifies and the 10k combines;
+             stacked-arm pass's 1,980 share verifies and the 10k combines;
              its verdicts, shares and plaintexts must equal the RNS arm's,
              the limb kernels must have launched and the RNS and fused
              kernels must not have.
@@ -68,10 +68,11 @@ Phases (any failure exits non-zero and prints no result line):
              EpochReport counts, no plane kernel launched, 3 + N dispatches
              fewer; both arms' ``host_bucket_rs_merkle`` and
              ``device_dispatches`` per epoch are logged.
-   coin epoch — one N=100 epoch with ``coin_rounds=1`` (binary agreement
-             on split inputs: one real threshold-sign coin round per
-             instance): the same Batch checks, the coin's counts in the
-             ``EpochReport`` (10,000 signs, 990,000 share verifies, 10,000
+   coin epoch — one N=COIN_N=64 epoch (BASELINE config 3's coin flips;
+             N=100 until the mesh phase came) with ``coin_rounds=1``
+             (binary agreement on split inputs: one real threshold-sign coin
+             round per instance): the same Batch checks, the coin's counts in
+             the ``EpochReport`` (4,096 signs, 258,048 share verifies, 4,096
              combines), the native hash-to-G2 built; then ``fq_rns_mul`` and
              ``fq_rns_pow`` against their plain versions at the coin path's
              mean and widest launches.
@@ -88,7 +89,7 @@ Phases (any failure exits non-zero and prints no result line):
              next epoch), ``fq_rns_mul``/``fq_rns_pow`` against their plain
              versions at the era change's mean and widest launches, and the
              device MSM ``g1_lincomb`` against a host fold (64 terms) and
-             the seam's default (2·``device_lane_cap``+5 terms: two device
+             the seam's default (2·LINCOMB_LANE_CAP+5 terms: two device
              chunks and a host tail).  ``--era-only`` builds and runs this
              phase alone.
    object  — the object runtime: HoneyBadger over the port's VirtualNet
@@ -138,7 +139,7 @@ Phases (any failure exits non-zero and prints no result line):
              ``TorchBackend()`` held against the port's ``MockBackend``:
              (a) the simulation driver (``tools/simulation.py``) at
              BASELINE config 1, RECOVERY_SIM (N=4, f=1, 100 transactions a
-             batch, six epochs, the CLI's defaults otherwise), straight
+             batch, four epochs, the CLI's defaults otherwise), straight
              through, split by ``checkpoint()`` after RECOVERY_SPLIT epochs
              and ``Simulation.from_checkpoint`` on a fresh backend, and on
              the mock: the same batches on every node and epoch; (b) the
@@ -207,14 +208,41 @@ Phases (any failure exits non-zero and prints no result line):
              each is held against its plain version at (c)'s mean and
              widest launches.  It runs after the traffic phase (~30 s).
              ``--analysis-only`` builds and runs this phase alone.
+   mesh    — multi-device dispatch (``hbbft_tpu_torch/parallel/``): (a)
+             one N=100 epoch at phase 4's configuration (engine defaults,
+             128-byte contributions, ``--seed``) on ``MeshBackend()`` over
+             the card, ``MeshBackend[1]``: phase 4's first Batch, EpochReport
+             counts and ``device_dispatches``, its per-entry dispatch tallies
+             summing to its placements with imbalance 1.0; (b) a mesh of
+             MESH_ENTRIES entries of the card, one CUDA stream each, through
+             the cases of the reference's tests/test_mesh_backend.py, bit for
+             bit against ``TorchBackend()`` and the host golden: the
+             HBBFT_TPU_NO_SHARD_PIPE=1 A/B at cap x entries - 1, = and + 1
+             (the same shares, the same dispatches, round-robin placements,
+             no reservation under the kill switch), the small-batch clamp
+             (on MESH_CLAMP_ENTRIES entries), a lane-capped
+             ``combine_dec_shares_batch``, ``verify_dec_shares`` and
+             ``verify_sig_shares`` with a forged share (their RLC rounds
+             sharded over the entries), the reference's decryption round
+             trip, the per-entry spans under a ``Tracer`` summing to
+             ``device_seconds`` within 5% (``trace_report
+             .check_per_device_seconds`` and its CLI), and
+             ``sharded_product2``/``sharded_combine_g2`` against their
+             unsharded forms and the host group; (c) ``mesh_probe`` at
+             MESH_PROBE entries (placements, balance and results; its
+             chunks/s is structural).  The five epoch kernels and the three
+             plane kernels must launch in (a), then each is held against its
+             plain version at (a)'s mean and widest launches.  It runs after
+             the analysis phase; ``--mesh-only`` builds and runs it alone (with
+             its own ``TorchBackend()`` epoch to hold (a) against).
    bench   — the port's kernel bench (``hbbft_tpu_torch.tools.kernel_bench``)
              at its default widths: M muls/s of both field arms and the RNS
              chain, TFLOP/s of the FMA probe.
              Kernel launch counts are zeroed just before each of phases 3,
              limb arm (in the child), sig path, 4, coin epoch, the era
              change, object, dynamic, recovery, traffic, the analysis
-             phase's card run and bench, and read just after; every
-             kernel of the path must have launched.
+             phase's card run, the mesh phase's epoch and bench, and read
+             just after; every kernel of the path must have launched.
 5. a ``{"kernels": [...]}`` line, one row per kernel: launches on its own
    path (epoch, limb arm or bench; the epoch kernels also carry their
    launches on the coin epoch, ``coin_launches``, and during the era
@@ -225,7 +253,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``dynamic_widest_lanes``, the recovery phase, ``recovery_*``, the
    traffic phase, ``traffic_*``, with the plane kernels' time at the traffic
    epochs' widths, ``traffic_ms`` beside ``traffic_plain_ms``, and the
-   analysis phase's card run, ``analysis_*``; the plane's
+   analysis phase's card run, ``analysis_*``, and the mesh phase's epoch,
+   ``mesh_*``; the plane's
    kernels are held at the epoch's
    own shapes first: a whole tree build, the N² proof walk with corrupted
    roots and leaf), largest difference from the plain
@@ -330,11 +359,17 @@ POW_WIDTHS = (1, 15, 16, 17)
 LIMB_WIDTHS = (1, 1001, 4096)
 CHAIN_WIDTHS = (1, 1001, 16385, 65536)
 CHAIN_CHECK = 8  # products per checked chain launch
-#: the limb arm's share verifies: the stacked-arm pass's 2·N·(N−1) items
-LIMB_ARM_ITEMS = 2 * N * (N - 1)
+#: the stacked-arm pass's and the limb arm's share verifies: 20 of one
+#: proposer's decryption shares, each checked by its N−1 receivers (the
+#: first of them forged), cut from 2·N·(N−1) = 19,800 when the mesh phase
+#: took a whole smoke to ~1,211 s on a slow host
+STACKED_ITEMS = 20 * (N - 1)
+LIMB_ARM_ITEMS = STACKED_ITEMS
 #: the coin epoch: one real coin round a BA instance (the split-input
-#: schedule)
+#: schedule) at N=64, f=21, BASELINE config 3's coin-flip N; cut from N=100
+#: beside the mesh phase (a whole smoke took ~1,211 s on a slow host)
 COIN_ROUNDS = 1
+COIN_N = 64
 #: host golden checks of the sig path: signature shares and instances sampled
 SIGN_SAMPLES = 100
 COMBINE_SAMPLES = 3
@@ -349,6 +384,10 @@ COMBINE_SAMPLES = 3
 ERA_N = 10
 #: g1_lincomb's terms held against a pure host fold of g1_mul
 LINCOMB_SAMPLE = 64
+#: the lane cap of g1_lincomb's check against the seam's default (2·cap+5
+#: terms, the default a pure host fold): 4,096, cut from the backend's
+#: 32,768 beside the mesh phase (the default took ~10 s at 65,541 terms)
+LINCOMB_LANE_CAP = 1 << 12
 #: the object runtime's shapes (N, f, epochs), both cut from BASELINE's N=100,
 #: whose object-runtime epoch is 6.94M deliveries of host Python (the array
 #: engine carries N=100): N=22 is the smallest N whose object runtime routes
@@ -2114,15 +2153,16 @@ def phase_dynamic(seed: int, card: str, device=None, shapes=DYNAMIC_SHAPES,
 #: (hbbft_tpu_torch/tools/simulation.py) at BASELINE config 1, the published
 #: shape of examples/simulation.rs (N=4, f=1, 100 transactions a batch, ten
 #: epochs, cut to six, the split at three, when a whole smoke with the
-#: analysis phase took ~1,175 s on a slow host) with the CLI's defaults for
+#: analysis phase took ~1,175 s on a slow host, and to four, the split at
+#: two, beside the mesh phase, ~1,211 s) with the CLI's defaults for
 #: the rest: 200 ten-byte transactions queued a node, λ = 100 ms, 2,000
 #: KB/s, 1 ms a message, a 64-message crypto window, seed 0; the split run
 #: checkpoints after RECOVERY_SPLIT epochs and resumes in a fresh
 #: Simulation on a fresh backend
 RECOVERY_SIM = dict(num_nodes=4, num_faulty=1, batch_size=100, tx_size=10, txns=200,
-                    epochs=6, lam=100.0, bandwidth=2000.0, cpu_factor=1.0, crypto_window=64,
+                    epochs=4, lam=100.0, bandwidth=2000.0, cpu_factor=1.0, crypto_window=64,
                     seed=0)
-RECOVERY_SPLIT = 3
+RECOVERY_SPLIT = 2
 #: (b) the crash axis, the schedule of the reference's
 #: test_crashes.py::test_crash_parks_traffic_and_restart_catches_up:
 #: SenderQueue ⊃ QueueingHoneyBadger, N=4, f=0, batch size 3, net seed 5,
@@ -2707,6 +2747,292 @@ def phase_analysis(card: str, make_backend=None, before_card=None) -> dict:
     return res
 
 
+MESH_ENTRIES = 4  # (b): entries of the card mesh, one CUDA stream each
+MESH_CAP = 8  # (b): the kill-switch A/B's lane cap (cap x entries = 32)
+MESH_CLAMP_ENTRIES = 8  # (b): the small-batch clamp's mesh (a 4-lane bucket < 8)
+MESH_COMBINES = 32  # (b): the lane-capped combine batch (k = 2; four chunks)
+MESH_DEC_SHARES = 16  # (b): shares of one ciphertext, one of them forged
+MESH_LANES = 16  # (b): sharded_product2's lanes and sharded_combine_g2's shares
+MESH_PROBE = (1, 4)  # (c): mesh_probe's entries
+MESH_PROBE_CHUNKS = 64
+
+
+@contextmanager
+def backend_caps(backend, lane_cap: int, threshold: int):
+    saved = backend.device_lane_cap, backend.device_combine_threshold
+    backend.device_lane_cap, backend.device_combine_threshold = lane_cap, threshold
+    try:
+        yield backend
+    finally:
+        backend.device_lane_cap, backend.device_combine_threshold = saved
+
+
+@contextmanager
+def no_shard_pipe(on: bool):
+    """HBBFT_TPU_NO_SHARD_PIPE=1 inside the block when ``on``, unset otherwise."""
+    saved = os.environ.pop("HBBFT_TPU_NO_SHARD_PIPE", None)
+    if on:
+        os.environ["HBBFT_TPU_NO_SHARD_PIPE"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("HBBFT_TPU_NO_SHARD_PIPE", None)
+        if saved is not None:
+            os.environ["HBBFT_TPU_NO_SHARD_PIPE"] = saved
+
+
+def mesh_cases(card: str, device=None, cap: int = MESH_CAP, entries: int = MESH_ENTRIES,
+               combines: int = MESH_COMBINES, lanes: int = MESH_LANES) -> dict:
+    """(b) of the mesh phase: the cases of the reference's
+    tests/test_mesh_backend.py on a mesh of ``entries`` entries of one
+    device (the card: one CUDA stream each), bit for bit against
+    ``TorchBackend`` on the same device and the host golden."""
+    import tempfile
+
+    import torch
+
+    from hbbft_tpu_torch.crypto import bls381 as gold
+    from hbbft_tpu_torch.crypto.field import R
+    from hbbft_tpu_torch.obs import Tracer
+    from hbbft_tpu_torch.ops import curve, pairing, tower
+    from hbbft_tpu_torch.ops.backend import TorchBackend
+    from hbbft_tpu_torch.parallel import MeshBackend, device_mesh
+    from hbbft_tpu_torch.parallel.mesh import sharded_combine_g2, sharded_product2
+    from hbbft_tpu_torch.tools import trace_report
+
+    on = "cuda" if device is None else device
+    mesh = MeshBackend(device_mesh(entries, device=on))
+    plain = TorchBackend(device=device)
+    rng = random.Random(13)
+    sks = plain.generate_key_set(1, rng)
+    pks = sks.public_keys()
+    out: dict = {"name": mesh.name}
+    secs: dict = {}
+
+    # the kill-switch A/B at cap·entries − 1, = and + 1
+    t = time.perf_counter()
+    doc = b"shard ab doc"
+    signed = {i: sks.secret_key_share(i).sign_share(doc) for i in range(3)}
+    ab = {}
+    for m in (cap * entries - 1, cap * entries, cap * entries + 1):
+        items = [(sks.secret_key_share(i % 3), doc) for i in range(m)]
+        golden = [signed[i % 3] for i in range(m)]
+        chunks = m // cap + (1 if m % cap >= 2 else 0)  # a one-item tail folds on the host
+        with backend_caps(mesh, cap, 2), backend_caps(plain, cap, 2):
+            with no_shard_pipe(False):
+                p0, d0 = len(mesh._pipe.placements), mesh.counters.device_dispatches
+                sharded = mesh.sign_shares_batch(items)
+                placements = mesh._pipe.placements[p0:]
+                disp_sharded = mesh.counters.device_dispatches - d0
+            with no_shard_pipe(True):
+                p1, d1 = len(mesh._pipe.placements), mesh.counters.device_dispatches
+                single = mesh.sign_shares_batch(items)
+                disp_single = mesh.counters.device_dispatches - d1
+                reserved = len(mesh._pipe.placements) - p1
+            # TorchBackend at the mesh's width (the golden holds every n)
+            want = plain.sign_shares_batch(items) if m == cap * entries else golden
+        if not (sharded == single == want == golden):
+            raise AssertionError(f"mesh kill-switch A/B at n={m}: the shares differ")
+        if not (disp_sharded == disp_single == chunks) or reserved:
+            raise AssertionError(f"mesh kill-switch A/B at n={m}: dispatches {disp_sharded} / "
+                                 f"{disp_single}, not {chunks}; {reserved} reservations")
+        if placements != [(placements[0] + i) % entries for i in range(chunks)]:
+            raise AssertionError(f"mesh kill-switch A/B at n={m}: placements {placements}")
+        ab[m] = {"dispatches": chunks, "placements": placements}
+    out["killswitch_ab"] = ab
+    secs["killswitch_ab"] = time.perf_counter() - t
+
+    # the small-batch clamp: a 3-item ladder pads to 4 lanes and rides one entry
+    t = time.perf_counter()
+    wide = MeshBackend(device_mesh(MESH_CLAMP_ENTRIES, device=on))
+    items = [(sks.secret_key_share(i), b"small batch") for i in range(3)]
+    golden = [sk.sign_share(d) for sk, d in items]
+    with backend_caps(wide, wide.device_lane_cap, 2):
+        with no_shard_pipe(False):
+            if wide.sign_shares_batch(items) != golden:
+                raise AssertionError("mesh clamp: the shares differ")
+        with no_shard_pipe(True):
+            if wide.sign_shares_batch(items) != golden:
+                raise AssertionError("mesh clamp: the kill-switch shares differ")
+    if (wide.counters.device_dispatches, len(wide._pipe.placements), wide._pad_bucket(3)) \
+            != (2, 1, 4):
+        raise AssertionError("mesh clamp: not one 4-lane chunk on one entry an arm")
+    secs["clamp"] = time.perf_counter() - t
+
+    # a lane-capped combine_dec_shares_batch: k = 2, four chunks
+    t = time.perf_counter()
+    cts, msgs, batch = [], [], []
+    for j in range(combines):
+        msg = bytes([j % 251]) * 8
+        ct = pks.encrypt(msg, rng)
+        batch.append(({i: sks.secret_key_share(i).decrypt_share_unchecked(ct) for i in (0, 2)},
+                      ct))
+        msgs.append(msg)
+    d0 = mesh.counters.device_dispatches
+    with backend_caps(mesh, combines // 2, 2), backend_caps(plain, combines // 2, 2):
+        got, want = mesh.combine_dec_shares_batch(pks, batch), \
+            plain.combine_dec_shares_batch(pks, batch)
+    if not (got == want == msgs) or mesh.counters.device_dispatches - d0 != 4:
+        raise AssertionError("mesh lane-capped combines: wrong plaintexts or chunk count")
+    secs["combines"] = time.perf_counter() - t
+
+    # share verifies with a forged share: the RLC rounds shard over the entries
+    t = time.perf_counter()
+    ct = pks.encrypt(b"forged share", rng)
+    other = pks.encrypt(b"another ciphertext", rng)
+    dec = [(pks.public_key_share(i), ct,
+            sks.secret_key_share(i).decrypt_share_unchecked(other if i == 5 else ct))
+           for i in range(MESH_DEC_SHARES)]
+    want_dec = [i != 5 for i in range(MESH_DEC_SHARES)]
+    sig_doc = b"mesh doc"
+    sig = [(pks.public_key_share(i), sig_doc, sks.secret_key_share(i).sign_share(sig_doc))
+           for i in range(3)]
+    sig.append((pks.public_key_share(1), sig_doc, sks.secret_key_share(0).sign_share(b"other")))
+    if not (mesh.verify_dec_shares(dec) == plain.verify_dec_shares(dec) == want_dec):
+        raise AssertionError("mesh verify_dec_shares: the verdicts differ")
+    if not (mesh.verify_sig_shares(sig) == plain.verify_sig_shares(sig)
+            == [True, True, True, False]):
+        raise AssertionError("mesh verify_sig_shares: the verdicts differ")
+    # the reference's round trip: a ciphertext check, two shares, a device combine
+    msg = b"sharded threshold decryption"
+    ct = pks.encrypt(msg, rng)
+    shares = {i: sks.secret_key_share(i).decrypt_share_unchecked(ct) for i in (0, 2)}
+    if mesh.verify_ciphertexts([ct]) != [True] or mesh.verify_dec_shares(
+            [(pks.public_key_share(i), ct, s) for i, s in shares.items()]) != [True, True]:
+        raise AssertionError("mesh round trip: a check failed")
+    with backend_caps(mesh, mesh.device_lane_cap, 2):
+        if mesh.combine_dec_shares_batch(pks, [(shares, ct)] * 3) != [msg] * 3:
+            raise AssertionError("mesh round trip: wrong plaintexts")
+    secs["verifies"] = time.perf_counter() - t
+
+    # per-entry spans under a Tracer sum to device_seconds within ±5%
+    t = time.perf_counter()
+    items = [(sks.secret_key_share(i % 3), b"per-device") for i in range(cap * entries)]
+    mesh.tracer = Tracer()
+    d0 = mesh.counters.device_seconds
+    try:
+        with backend_caps(mesh, cap, 2):
+            mesh.sign_shares_batch(items)
+    finally:
+        tr, mesh.tracer = mesh.tracer, None
+    dev_s = mesh.counters.device_seconds - d0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh_trace.json")
+        tr.write(path)
+        events = trace_report.load_events(path)
+        ok, per = trace_report.check_per_device_seconds(events, dev_s)
+        cli = trace_report.main([path, "--device-seconds", str(dev_s)])
+    tracks = sorted(k for k in per if k.startswith("device/"))
+    if trace_report.validate_chrome_trace(events) or not ok or cli != 0 \
+            or len(tracks) < entries:
+        raise AssertionError(f"mesh spans: {per} against device_seconds {dev_s}")
+    out["spans"] = {"per_track_seconds": per, "device_seconds": dev_s,
+                    "sum": sum(per.values())}
+    secs["spans"] = time.perf_counter() - t
+
+    # sharded_product2 and sharded_combine_g2 against their unsharded forms
+    t = time.perf_counter()
+    g1, g2 = gold.G1_GEN, gold.G2_GEN
+    quads = []
+    for j in range(lanes):
+        a = rng.randrange(1, R)
+        quads.append((gold.ec_mul(gold.FQ, a, g1), g2, gold.ec_neg(gold.FQ, g1),
+                      gold.ec_mul(gold.FQ2, a if j % 2 == 0 else a + 1, g2)))
+    args = (pairing.g1_affine_to_device([q[0] for q in quads], device=on),
+            pairing.g2_affine_to_device([q[1] for q in quads], device=on),
+            pairing.g1_affine_to_device([q[2] for q in quads], device=on),
+            pairing.g2_affine_to_device([q[3] for q in quads], device=on))
+    mesh_dev = device_mesh(entries, device=on)
+    got, want = sharded_product2(mesh_dev)(*args), pairing.product2_fast(*args)
+    if tower.fq12_to_ints_batch(got, lanes) != tower.fq12_to_ints_batch(want, lanes) or \
+            pairing.is_one_host_batch(got, lanes) != [j % 2 == 0 for j in range(lanes)]:
+        raise AssertionError("sharded_product2 differs from product2_fast")
+    pts = [gold.ec_mul(gold.FQ2, rng.randrange(1, R), g2) for _ in range(lanes)]
+    lams = [rng.randrange(R) for _ in range(lanes)]
+    safe = [curve.safe_scalar(x) for x in lams]
+    bits = torch.as_tensor(curve.scalars_to_bits([s for s, _ in safe]), device=on)
+    negs = torch.as_tensor([neg for _, neg in safe], device=on)
+    dev_pts = curve.g2_to_device(pts, device=on)
+    host = None
+    for lam, p in zip(lams, pts):
+        host = gold.ec_add(gold.FQ2, host, gold.ec_mul(gold.FQ2, lam, p))
+    got = curve.g2_from_device(sharded_combine_g2(mesh_dev)(dev_pts, bits, negs))
+    if got != curve.g2_from_device(curve.linear_combine_g2(dev_pts, bits, negs)) or \
+            got != [host]:
+        raise AssertionError("sharded_combine_g2 differs from linear_combine_g2 or the host")
+    secs["sharded_fns"] = time.perf_counter() - t
+    out["shard_stats"] = mesh.shard_stats()
+    out["seconds"] = secs
+    log(f"mesh (b) {mesh.name} over one {on} device [{card}]: kill-switch A/B at n="
+        f"{sorted(ab)} bit-identical to {plain.name} and the host, dispatches "
+        f"{json.dumps({m: v['dispatches'] for m, v in ab.items()})}, placements "
+        f"{json.dumps({m: v['placements'] for m, v in ab.items()})}; clamp, combines, "
+        f"verifies, spans ({json.dumps({k: round(v, 6) for k, v in per.items()})} against "
+        f"device_seconds {dev_s:.6f}) and the sharded product/combine held; shard_stats "
+        f"{json.dumps(out['shard_stats'])}; seconds {json.dumps(secs)}")
+    return out
+
+
+def phase_mesh(card: str, seed: int, n: int = N, ref=None, device=None, before_main=None,
+               after_main=None, **case_sizes) -> dict:
+    """The mesh phase: (a) one N-node epoch (phase 4's configuration) on
+    ``MeshBackend()`` over the card, ``MeshBackend[1]``: the Batch, the
+    EpochReport counts and ``device_dispatches`` of ``ref`` (phase 4's
+    first epoch on ``TorchBackend()``; run here when not given), its
+    shard tallies summing to its placements with imbalance 1.0; (b)
+    ``mesh_cases``; (c) ``mesh_probe`` at MESH_PROBE entries.
+    ``before_main()`` runs just before (a)'s epoch, ``after_main()`` just
+    after it."""
+    from hbbft_tpu_torch.ops.backend import TorchBackend
+    from hbbft_tpu_torch.parallel import MeshBackend, device_mesh
+    from hbbft_tpu_torch.tools import mesh_probe
+
+    on = "cuda" if device is None else device
+    res: dict = {}
+    if ref is None:
+        ref = phase_epoch(TorchBackend(device=device), seed, n, 1, card)["epochs"][0]
+    backend = MeshBackend() if device is None else MeshBackend(device_mesh(1, device=device))
+    if backend.name != "MeshBackend[1]":
+        raise AssertionError(f"MeshBackend() over this host is {backend.name}")
+    if before_main is not None:
+        before_main()
+    t = time.perf_counter()
+    main = phase_epoch(backend, seed, n, 1, card)
+    secs = time.perf_counter() - t
+    if after_main is not None:
+        after_main()
+    (ep,) = main["epochs"]
+    counts = [{k: v for k, v in e["report"].items() if k != "phase_seconds"} for e in (ep, ref)]
+    if ep["batch"] != ref["batch"] or counts[0] != counts[1]:
+        raise AssertionError("the MeshBackend[1] epoch's Batch or counts differ from "
+                             "TorchBackend()'s")
+    if ep["counters"]["device_dispatches"] != ref["counters"]["device_dispatches"]:
+        raise AssertionError(f"MeshBackend[1] dispatched {ep['counters']['device_dispatches']}"
+                             f" times, TorchBackend() {ref['counters']['device_dispatches']}")
+    st = backend.shard_stats()
+    if sum(st["shard_dispatches"]) != st["shard_placements"] or st["shard_imbalance"] != 1.0:
+        raise AssertionError(f"MeshBackend[1] shard_stats {st}")
+    c = backend.counters
+    res["main"] = {"name": backend.name, "seconds": secs, "epoch": ep, "shard_stats": st,
+                   "device_dispatches": c.device_dispatches,
+                   "pipelined_dispatches": c.pipelined_dispatches,
+                   "device_seconds": main["device_seconds"]}
+    log(f"mesh (a) {backend.name} N={n} epoch [{card}]: {ep['seconds']:.3f} s, TorchBackend()'s "
+        f"Batch, counts and {ep['counters']['device_dispatches']} dispatches; shard_stats "
+        f"{json.dumps(st)} ({st['shard_placements']} chunks placed whole; "
+        f"{c.pipelined_dispatches} pipelined dispatches with the proof walks' repeats, which "
+        f"ride their placed chunk's entry unreserved)")
+    res["cases"] = mesh_cases(card, device=device, **case_sizes)
+    res["probe"] = []
+    for k in MESH_PROBE:
+        row = mesh_probe.probe(k, chunks=MESH_PROBE_CHUNKS, device=on)
+        log(f"mesh (c) mesh_probe [{card}]: {json.dumps(row)}")
+        if not (row["placements_ok"] and row["balanced"] and row["results_ok"]):
+            raise AssertionError(f"mesh_probe at {k} entries: {row}")
+        res["probe"].append(row)
+    return res
+
+
 def same(name: str, got, want) -> float:
     """max |kernel - plain|; raises unless the two are equal value for value
     (whether every bit agrees too, the signs of zeros included, is logged)."""
@@ -3094,7 +3420,7 @@ def run_era(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
     era_res["checked_widths"] = check_path_widths(
         dev, rng, errs, era["launches"], era["lanes"], era["widest"],
         f"era change, N={args.era_n}")
-    era_res["lincomb"] = check_lincomb(args.seed + 4, card)
+    era_res["lincomb"] = check_lincomb(args.seed + 4, card, lane_cap=LINCOMB_LANE_CAP)
     secs["era_checks"] = time.perf_counter() - t
     return era_res
 
@@ -3273,6 +3599,54 @@ def run_analysis(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
     return res
 
 
+def run_mesh(args, dev, rng, errs: dict, card: str, secs: dict, ref=None) -> dict:
+    """The mesh phase, the kernel launch counts zeroed just before (a)'s
+    epoch on ``MeshBackend[1]`` and read just after it (the five epoch
+    kernels and the three plane kernels must have launched), then the five
+    epoch kernels against their plain versions at (a)'s mean and widest
+    launches and the plane kernels there and at its leaf lengths.  ``ref``:
+    phase 4's first epoch (``--mesh-only`` runs its own)."""
+    import torch
+
+    from hbbft_tpu_torch.ops import gf256 as G, sha256 as S
+
+    seen: dict = {}
+
+    def after_main():
+        seen["all_launches"] = _launch_counts(kernel_fns())
+        seen["launches"], seen["lanes"] = read_launches(
+            f"the mesh phase's MeshBackend[1] epoch (N={N})", EPOCH_KERNELS + RS_KERNELS)
+        seen["widest"] = {**widest_launches(), "gf256_matmul": G.gf256_matmul.widest,
+                          "sha256_tagged": S.sha256_tagged.widest,
+                          "sha256_proofs": S.sha256_proofs.widest}
+        seen["leaf_lengths"] = sorted(S.sha256_proofs.leaf_lengths)
+
+    t = time.perf_counter()
+    res = phase_mesh(card, args.seed, ref=ref, before_main=reset_launches, after_main=after_main)
+    torch.cuda.synchronize()
+    secs["mesh_phase"] = time.perf_counter() - t
+    res.update(seen)
+    t = time.perf_counter()
+    res["checked_widths"] = check_path_widths(
+        dev, rng, errs, res["launches"], res["lanes"], res["widest"], "mesh",
+        names=EPOCH_KERNELS)
+    res["plane_rows"] = rs_plane_rows(dev, rng, errs, res["launches"], res["lanes"],
+                                      widest=res["widest"], leaf_lengths=res["leaf_lengths"],
+                                      path="mesh")
+    secs["mesh_checks"] = time.perf_counter() - t
+    return res
+
+
+def log_mesh(res: dict, card: str) -> None:
+    a, b = res["main"], res["cases"]
+    log(f"mesh [{card}]: (a) {a['name']} N={N} epoch {a['epoch']['seconds']:.3f} s, "
+        f"{a['device_dispatches']} dispatches, shard_stats {json.dumps(a['shard_stats'])}; "
+        f"(b) {b['name']} seconds {json.dumps(b['seconds'])}; (c) mesh_probe chunks/s "
+        f"(structural) {json.dumps({r['devices']: r['chunks_per_s'] for r in res['probe']})}")
+    log(f"mesh launches [{card}]: {json.dumps(res['launches'])}; lanes "
+        f"{json.dumps(res['lanes'])}; widest {json.dumps(res['widest'])}")
+
+
 def log_analysis(res: dict, card: str) -> None:
     lint, ex, c = res["lint"], res["explorer"], res["card"]
     log(f"analysis [{card}]: (a) lint {lint['rules']} rules, {lint['new']} new findings, "
@@ -3367,6 +3741,10 @@ def main(argv=None) -> int:
                       help="build the kernels, then run the traffic phase (N=100 traffic "
                            "epochs with the controller, the controller x crash cell) and its "
                            "checks alone")
+    only.add_argument("--mesh-only", action="store_true",
+                      help="build the kernels, then run the mesh phase (an N=100 epoch on "
+                           "MeshBackend[1] against TorchBackend()'s, the mesh backend's cases "
+                           "on four entries of the card, mesh_probe) and its checks alone")
     only.add_argument("--analysis-only", action="store_true",
                       help="build the kernels, then run the analysis phase (lint, the "
                            "explorer on the mock, the explorer's pipeline target on the "
@@ -3422,7 +3800,8 @@ def main(argv=None) -> int:
             (args.dynamic_only, "dynamic", run_dynamic, log_dynamic),
             (args.recovery_only, "recovery", run_recovery, log_recovery),
             (args.traffic_only, "traffic", run_traffic, log_traffic),
-            (args.analysis_only, "analysis", run_analysis, log_analysis)) if flag]
+            (args.analysis_only, "analysis", run_analysis, log_analysis),
+            (args.mesh_only, "mesh", run_mesh, log_mesh)) if flag]
         if alone:  # one phase and its checks, after the build
             (name, run, log_fn), = alone
             res = run(args, dev, rng, {"fq_rns_mul": 0.0, "fq_rns_pow": 0.0}, card, secs)
@@ -3457,7 +3836,7 @@ def main(argv=None) -> int:
         path_launches, _ = read_launches("the threshold-decryption path", EPOCH_KERNELS)
 
         t = time.perf_counter()
-        stacked_res = phase_stacked_arm(state, 2 * N * (N - 1))
+        stacked_res = phase_stacked_arm(state, STACKED_ITEMS)
         secs["stacked_arm"] = time.perf_counter() - t
 
         t = time.perf_counter()
@@ -3503,11 +3882,12 @@ def main(argv=None) -> int:
         coin_backend = TorchBackend()
         reset_launches()
         t = time.perf_counter()
-        coin_res = phase_epoch(coin_backend, args.seed + 2, N, 1, card, coin_rounds=COIN_ROUNDS)
+        coin_res = phase_epoch(coin_backend, args.seed + 2, COIN_N, 1, card,
+                               coin_rounds=COIN_ROUNDS)
         torch.cuda.synchronize()
         secs["coin_epoch"] = time.perf_counter() - t
         coin_launches, coin_lanes = read_launches(
-            f"the coin epoch (N={N}, coin_rounds={COIN_ROUNDS})", EPOCH_KERNELS)
+            f"the coin epoch (N={COIN_N}, coin_rounds={COIN_ROUNDS})", EPOCH_KERNELS)
         coin_widest = {"fq_rns_mul": K.mul.widest, "fq_rns_pow": K.pow_fixed.widest}
         coin_res.update(
             launches=coin_launches, lanes=coin_lanes, widest=coin_widest,
@@ -3531,6 +3911,7 @@ def main(argv=None) -> int:
         recovery_res = run_recovery(args, dev, rng, errs, card, secs)
         traffic_res = run_traffic(args, dev, rng, errs, card, secs)
         analysis_res = run_analysis(args, dev, rng, errs, card, secs)
+        mesh_res = run_mesh(args, dev, rng, errs, card, secs, ref=epoch_res["epochs"][0])
 
         reset_launches()
         t = time.perf_counter()
@@ -3556,11 +3937,15 @@ def main(argv=None) -> int:
                                           / object_res["launches"][r["name"]])
                 r["object_widest_lanes"] = object_res["widest"][r["name"]]
             for tag, res in (("dynamic", dynamic_res), ("recovery", recovery_res),
-                             ("traffic", traffic_res), ("analysis", analysis_res)):
+                             ("traffic", traffic_res), ("analysis", analysis_res),
+                             ("mesh", mesh_res)):
                 r[f"{tag}_launches"] = res["all_launches"][r["name"]]
                 if r["name"] in res["widest"]:
                     r[f"{tag}_mean_lanes"] = res["lanes"][r["name"]] / res["launches"][r["name"]]
                     r[f"{tag}_widest_lanes"] = res["widest"][r["name"]]
+            # every row names the mesh phase's lanes (null: not launched there)
+            r.setdefault("mesh_mean_lanes", None)
+            r.setdefault("mesh_widest_lanes", None)
         for r in rows:  # the plane kernels timed at the traffic epochs' widths too
             for pr in traffic_res["plane_rows"]:
                 if pr["name"] == r["name"]:
@@ -3584,7 +3969,7 @@ def main(argv=None) -> int:
         "stacked_arm": stacked_res, "limb_arm": limb_res, "sig_path": sig_res,
         "epoch": epoch_res, "rs_kill_switch": kill_res, "coin_epoch": coin_res, "era": era_res,
         "object_runtime": object_res, "dynamic": dynamic_res, "recovery": recovery_res,
-        "traffic": traffic_res, "analysis": analysis_res,
+        "traffic": traffic_res, "analysis": analysis_res, "mesh": mesh_res,
         "bench": bench_res, "phase_seconds": secs,
         "path_device_dispatches": c.device_dispatches, "path_pairing_checks": c.pairing_checks,
         "path_rlc_groups": c.rlc_groups, "kernels": rows, "launch_widths_log2": widths,
@@ -3607,7 +3992,7 @@ def main(argv=None) -> int:
         f"{json.dumps(limb_res['seconds'])}")
     log(f"sig path N={N} [{card}]: seconds {json.dumps(sig_res['seconds'])}; launches "
         f"{json.dumps(sig_res['launches'])}")
-    log(f"coin epoch N={N}, coin_rounds={COIN_ROUNDS} [{card}]: "
+    log(f"coin epoch N={COIN_N}, coin_rounds={COIN_ROUNDS} [{card}]: "
         f"{coin_res['epochs'][0]['seconds']:.3f} s, phase seconds "
         f"{json.dumps(coin_res['epochs'][0]['report']['phase_seconds'])}, device seconds "
         f"{json.dumps(coin_res['device_seconds'])}, launches {json.dumps(coin_launches)}, "
@@ -3618,6 +4003,7 @@ def main(argv=None) -> int:
     log_recovery(recovery_res, card)
     log_traffic(traffic_res, card)
     log_analysis(analysis_res, card)
+    log_mesh(mesh_res, card)
     log(f"phase seconds [{card}]: {json.dumps(secs)}")
     log(f"path device_dispatches={c.device_dispatches} pairing_checks={c.pairing_checks} "
         f"rlc_groups={c.rlc_groups} peak_memory_bytes={result['peak_memory_bytes']} [{card}]")

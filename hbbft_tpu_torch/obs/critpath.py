@@ -31,7 +31,9 @@ from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional
 
 #: The closed phase vocabulary: every :func:`stamp` call site passes one
-#: of these literals.
+#: of these literals, and every phase bills exactly one tracer span
+#: category (PHASE_SPAN_CATS); the phase-label guard test pins both, and
+#: the trace report's inline copies of them.
 PHASES = (
     "rbc.output",
     "ba.decide",
@@ -41,6 +43,18 @@ PHASES = (
     "crank",
     "crash:recovery",
 )
+
+#: phase -> the array-engine tracer span category it attributes
+#: (engine/array_engine.py span vocabulary: cat= literals).
+PHASE_SPAN_CATS = {
+    "rbc.output": "rbc",
+    "ba.decide": "ba",
+    "coin.reveal": "coin",
+    "decrypt.combine": "decrypt",
+    "epoch.commit": "epoch",
+    "crank": "crank",
+    "crash:recovery": "crash",
+}
 
 _PHASE_SET = frozenset(PHASES)
 
@@ -230,6 +244,11 @@ class EpochCritPath:
 
     def to_dict(self) -> Dict[str, Any]:
         return asdict(self)
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "EpochCritPath":
+        known = {k: d[k] for k in EpochCritPath.__dataclass_fields__ if k in d}
+        return EpochCritPath(**known)
 
 
 def _last_event(

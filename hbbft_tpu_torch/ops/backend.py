@@ -106,10 +106,10 @@ def _pad_zero_rows(bits, negs, pad: int):
     return bits, negs
 
 
-def _rlc_sig(S, PK, rbits, negG1, H, fused=None):
+def _rlc_sig(S, PK, negG1, H, rbits, fused=None):
     """Grouped sig-share check: e(G1, Σr·σ_i) == e(Σr·PK_i, H) per group.
     S: (G, k) Jacobian G2 shares, PK: (G, k) Jacobian G1 key shares,
-    rbits (G, k, RLC_BITS), negG1 and H (G,) affine.  The device graph of
+    negG1 and H (G,) affine, rbits (G, k, RLC_BITS).  The device graph of
     the check, a plain function; ``fused`` routes its pairing as
     ``pairing.product2_fast`` does."""
     zeros = torch.zeros(rbits.shape[:2], dtype=torch.bool, device=rbits.device)
@@ -212,6 +212,18 @@ class TorchBackend(CryptoBackend):
                 yield
             finally:
                 self.counters.host_assembly_seconds += time.perf_counter() - t0
+
+    def _pad_bucket(self, n: int) -> int:
+        """Bucket size for a batch/group axis.  ``MeshBackend`` widens it
+        to a multiple of the mesh so the axis shards evenly."""
+        return _bucket(n)
+
+    def _place(self, tree, pipelined: bool = False):
+        """Placement hook for a dispatch's staged inputs.  ``pipelined=True``
+        marks a chunk headed for a deferred-fetch dispatch: ``MeshBackend``
+        lands such a chunk whole on one reserved mesh entry and shards only
+        the synchronous dispatches; on one device this is the identity."""
+        return tree
 
     def _prep_scalars(self, prep, scalars):
         """Run a curve.prep_g*_scalars host prep under the GLV counters
@@ -335,7 +347,7 @@ class TorchBackend(CryptoBackend):
         g1 = self.group.g1()
         g2 = self.group.g2()
         pad = (g1, g2, g1, g2)  # trivially true
-        b = _bucket(n)
+        b = self._pad_bucket(n)
         chunk = chunk + [pad] * (b - n)
         neg = self.group.g1_neg
         with self._host_assembly():
@@ -346,6 +358,7 @@ class TorchBackend(CryptoBackend):
                 [q[2] for q in chunk], pairing.g1_affine_to_device, transform=neg
             )
             Q2 = self._to_device_gather([q[3] for q in chunk], pairing.g2_affine_to_device)
+            placed = self._place((P1, Q1, P2, Q2), pipelined=True)
 
         def deliver(f, base=base, n=n):
             for i, ok in enumerate(pairing.is_one_host_batch(f, n)):
@@ -353,7 +366,7 @@ class TorchBackend(CryptoBackend):
 
         self._bill_chain(fused, b)
         self._dispatch_async(
-            functools.partial(pairing.product2_fast, fused=fused), (P1, Q1, P2, Q2),
+            functools.partial(pairing.product2_fast, fused=fused), placed,
             kind="fused_chain" if fused else "pairing", items=n, on_result=deliver,
         )
 
@@ -442,15 +455,17 @@ class TorchBackend(CryptoBackend):
     def _reshape_groups(dev, g: int, k: int):
         return tree_map(lambda c: c.reshape((g, k) + tuple(c.shape[1:])), dev)
 
-    def _grouped_rlc(self, groups, items, build_group_arrays, fn, results, direct_quad,
+    def _grouped_rlc(self, groups, items, build_group_arrays, graph, results, direct_quad,
                      kind: str = "", deferred: bool = False):
         """Run RLC group checks; write per-item booleans into ``results``.
-        ``deferred=True`` submits the first round behind the in-flight
-        queue and returns a resumer that finishes the bisection."""
+        ``graph`` (``_rlc_sig`` or ``_rlc_dec``) is the group check's
+        device graph.  ``deferred=True`` submits the first round behind the
+        in-flight queue and returns a resumer that finishes the bisection."""
         pending = self._rlc_apply_cap([list(grp) for grp in groups if grp])
         grouped_idx = [i for grp in pending for i in grp]
         if deferred and pending:
-            args, n_items = self._rlc_round_stage(pending, build_group_arrays)
+            args, n_items = self._rlc_round_stage(pending, build_group_arrays, pipelined=True)
+            fn = self._rlc_dispatch_graph(graph, pending)
             holder: List[Any] = []
             self.counters.device_dispatches += 1
             self._dispatch_async(fn, args, kind=kind, items=n_items, on_result=holder.append)
@@ -459,30 +474,42 @@ class TorchBackend(CryptoBackend):
                 if not holder:
                     self._pipe.flush()
                 nxt = self._rlc_process_round(pending, holder[0], items, results, direct_quad)
-                self._rlc_rounds(nxt, items, build_group_arrays, fn, results, direct_quad, kind)
+                self._rlc_rounds(nxt, items, build_group_arrays, graph, results, direct_quad,
+                                 kind)
                 self._rlc_observe(grouped_idx, results)
 
             return resume
-        self._rlc_rounds(pending, items, build_group_arrays, fn, results, direct_quad, kind)
+        self._rlc_rounds(pending, items, build_group_arrays, graph, results, direct_quad, kind)
         self._rlc_observe(grouped_idx, results)
         return None
 
-    def _rlc_rounds(self, pending, items, build_group_arrays, fn, results, direct_quad,
+    def _rlc_rounds(self, pending, items, build_group_arrays, graph, results, direct_quad,
                     kind) -> None:
         """The synchronous bisection loop: one sync group dispatch per round."""
         while pending:
             args, n_items = self._rlc_round_stage(pending, build_group_arrays)
+            fn = self._rlc_dispatch_graph(graph, pending)
             self.counters.device_dispatches += 1
             f = self._dispatch_fetch(fn, args, kind=kind, items=n_items)
             pending = self._rlc_process_round(pending, f, items, results, direct_quad)
         self._pipe.flush()
 
-    def _rlc_round_stage(self, pending, build_group_arrays):
+    def _rlc_dispatch_graph(self, graph, pending):
+        """A round's group check graph, routed fused or stacked and billed
+        here, once per dispatch, however ``MeshBackend`` shards the round
+        (per-dispatch routing: flipping HBBFT_TPU_NO_FUSED_TOWER between
+        rounds takes effect at the next round)."""
+        fused = pairing_chain.fused_tower_mode()
+        self._bill_chain(fused, self._pad_bucket(len(pending)))
+        return functools.partial(graph, fused=fused)
+
+    def _rlc_round_stage(self, pending, build_group_arrays, pipelined: bool = False):
         """Stage one round: pad groups, draw fresh coefficients for the
-        whole (g, k) matrix, build the group point arrays."""
+        whole (g, k) matrix, build the group point arrays, place them.
+        ``pipelined`` marks the deferred first round."""
         with self._host_assembly():
             k = _bucket(max(len(grp) for grp in pending))
-            g = _bucket(len(pending))
+            g = self._pad_bucket(len(pending))
             padded: List[List[Optional[int]]] = [
                 list(grp) + [None] * (k - len(grp)) for grp in pending
             ] + [[None] * k] * (g - len(pending))
@@ -493,7 +520,8 @@ class TorchBackend(CryptoBackend):
                 for j, idx in enumerate(grp)
             ]
             rbits = curve.scalars_to_bits(scalars, self._rlc_bits()).reshape(g, k, -1)
-            args = tuple(build_group_arrays(padded, g, k)) + (self._tensor(rbits),)
+            args = self._place(tuple(build_group_arrays(padded, g, k)) + (self._tensor(rbits),),
+                               pipelined=pipelined)
         # two RLC_BITS-wide w2 ladders per lane (share + key combine)
         n_items = sum(len(grp) for grp in pending)
         self._count_ladder(rbits, n_items, glv=False, ladders_per_lane=2)
@@ -598,13 +626,8 @@ class TorchBackend(CryptoBackend):
             H = pairing.g2_affine_to_device(hs, cache=self._stage, device=self.device)
             return (S_jac, PK_jac, neg_g1, H)
 
-        def rlc(S_jac, PK_jac, neg_g1, H, rbits):
-            fused = pairing_chain.fused_tower_mode()
-            self._bill_chain(fused, rbits.shape[0])
-            return _rlc_sig(S_jac, PK_jac, rbits, neg_g1, H, fused=fused)
-
         cont = self._grouped_rlc(
-            rlc_groups, items, build, rlc, results, direct, kind="rlc_sig",
+            rlc_groups, items, build, _rlc_sig, results, direct, kind="rlc_sig",
             deferred=deferred,
         )
         return self._finish_verify(results, cont, deferred)
@@ -679,16 +702,10 @@ class TorchBackend(CryptoBackend):
             W = pairing.g2_affine_to_device(ws, cache=self._stage, device=self.device)
             return (D_jac, PK_jac, H, W)
 
-        def rlc(D_jac, PK_jac, H, W, rbits):
-            # per-dispatch routing + fused-chain accounting; the dispatch
-            # KIND stays rlc_dec (the fused/stacked split reads off the
-            # counters)
-            fused = pairing_chain.fused_tower_mode()
-            self._bill_chain(fused, rbits.shape[0])
-            return _rlc_dec(D_jac, PK_jac, H, W, rbits, fused=fused)
-
+        # the dispatch KIND stays rlc_dec whichever chain routes (the
+        # fused/stacked split reads off the counters)
         cont = self._grouped_rlc(
-            rlc_groups, items, build, rlc, results, direct, kind="rlc_dec",
+            rlc_groups, items, build, _rlc_dec, results, direct, kind="rlc_dec",
             deferred=deferred,
         )
         return self._finish_verify(results, cont, deferred)
@@ -883,7 +900,7 @@ class TorchBackend(CryptoBackend):
         step = max(1, self.device_lane_cap // k)
         if step & (step - 1):
             step = 1 << (step.bit_length() - 1)
-        return max(step, _bucket(1))
+        return max(step, self._pad_bucket(1))
 
     def _lagrange_chunk(self, share_dicts, k, ladder, on_result):
         """(B, k) point tree + per-item coefficient rows, padded with copies
@@ -892,7 +909,7 @@ class TorchBackend(CryptoBackend):
         ``_G1_LADDER`` (decryption shares) or ``_G2_LADDER`` (signature
         shares)."""
         with self._host_assembly():
-            b = _bucket(len(share_dicts))
+            b = self._pad_bucket(len(share_dicts))
             flat_pts: List[Any] = []
             bits_rows = []
             negs_rows = []
@@ -908,12 +925,13 @@ class TorchBackend(CryptoBackend):
             negs_rows.extend([negs_rows[0]] * pad)
             P = self._to_device_gather(flat_pts, ladder.to_device)
             P = tree_map(lambda c: c.reshape((b, k) + tuple(c.shape[1:])), P)
-            bits = self._tensor(np.stack(bits_rows))
-            negs = self._tensor(np.stack(negs_rows))
+            placed = self._place(
+                (P, self._tensor(np.stack(bits_rows)), self._tensor(np.stack(negs_rows))),
+                pipelined=True)
         self._count_ladder(bits_rows[0], len(share_dicts) * k, glv=bits_rows[0].ndim == 3)
         self.counters.device_dispatches += 1
         return self._dispatch_async(
-            ladder.combine, (P, bits, negs), kind="combine", items=len(share_dicts),
+            ladder.combine, placed, kind="combine", items=len(share_dicts),
             on_result=on_result,
         )
 
@@ -1034,7 +1052,7 @@ class TorchBackend(CryptoBackend):
     def _submit_ladder_chunk(self, scalars, points, base, out, ladder, kind) -> None:
         n = len(scalars)
         with self._host_assembly():
-            b = _bucket(n)
+            b = self._pad_bucket(n)
             bits, negs = self._prep_scalars(ladder.prep, list(scalars))
             pts = list(points)
             if b > n:
@@ -1042,14 +1060,14 @@ class TorchBackend(CryptoBackend):
                 negs = np.concatenate([negs, np.repeat(negs[:1], b - n, axis=0)])
                 pts = pts + [pts[0]] * (b - n)
             P = self._to_device_gather(pts, ladder.to_device)
-            args = (P, self._tensor(bits), self._tensor(negs))
+            placed = self._place((P, self._tensor(bits), self._tensor(negs)), pipelined=True)
         self._count_ladder(bits, n, glv=bits.ndim == 3)
         self.counters.device_dispatches += 1
 
         def deliver(fetched, base=base, n=n):
             out[base : base + n] = ladder.from_device(fetched)[:n]
 
-        self._dispatch_async(ladder.mul, args, kind=kind, items=n, on_result=deliver)
+        self._dispatch_async(ladder.mul, placed, kind=kind, items=n, on_result=deliver)
 
     # -- device erasure/hash plane -------------------------------------------
     #
@@ -1084,7 +1102,7 @@ class TorchBackend(CryptoBackend):
                 # (G, k, L) → (k, G·L): per-block columns concatenate, so
                 # the whole group is ONE product against the shared matrix
                 mat = stack.transpose(1, 0, 2).reshape(k, len(idxs) * shard_len)
-                args = (bits, self._tensor(mat))
+                placed = self._place((bits, self._tensor(mat)), pipelined=True)
             self.counters.device_dispatches += 1
 
             def deliver(parity, idxs=tuple(idxs), stack=stack, L=shard_len):
@@ -1094,7 +1112,7 @@ class TorchBackend(CryptoBackend):
                         par[j, row].tobytes() for j in range(m)
                     ]
 
-            self._dispatch_async(gf256_matmul, args, kind="rs_enc", items=len(idxs),
+            self._dispatch_async(gf256_matmul, placed, kind="rs_enc", items=len(idxs),
                                  on_result=deliver)
         self._pipe.flush()
         return out  # type: ignore[return-value]
@@ -1138,7 +1156,7 @@ class TorchBackend(CryptoBackend):
                     for col, j in enumerate(xs):
                         stack[row, col] = np.frombuffer(sls[i][j], dtype=np.uint8)
                 mat = stack.transpose(1, 0, 2).reshape(codec.k, len(idxs) * shard_len)
-                args = (bits, self._tensor(mat))
+                placed = self._place((bits, self._tensor(mat)), pipelined=True)
             self.counters.device_dispatches += 1
 
             def deliver(rec, idxs=tuple(idxs), missing=missing, L=shard_len):
@@ -1149,7 +1167,7 @@ class TorchBackend(CryptoBackend):
                         full[midx] = r[mrow, row].tobytes()
                     out[i] = full
 
-            self._dispatch_async(gf256_matmul, args, kind="rs_dec", items=len(idxs),
+            self._dispatch_async(gf256_matmul, placed, kind="rs_dec", items=len(idxs),
                                  on_result=deliver)
         self._pipe.flush()
         return out  # type: ignore[return-value]
@@ -1183,7 +1201,7 @@ class TorchBackend(CryptoBackend):
                 leaves = np.frombuffer(
                     b"".join(b"".join(sls[i]) for i in idxs), dtype=np.uint8
                 ).reshape(len(idxs), n, leaf_len)
-                args = (self._tensor(leaves),)
+                placed = self._place((self._tensor(leaves),), pipelined=True)
             self.counters.device_dispatches += 1
 
             def deliver(levels, idxs=tuple(idxs)):
@@ -1193,7 +1211,7 @@ class TorchBackend(CryptoBackend):
                                  for lvl in levels]
                     )
 
-            self._dispatch_async(sha256.tree_levels, args, kind="merkle", items=len(idxs),
+            self._dispatch_async(sha256.tree_levels, placed, kind="merkle", items=len(idxs),
                                  on_result=deliver)
         self._pipe.flush()
         return trees
@@ -1207,12 +1225,13 @@ class TorchBackend(CryptoBackend):
         if not device_rs_enabled() or not len(packed):
             return CryptoBackend.merkle_verify_batch(self, packed, reps=reps)
         with self._host_assembly():
-            args = (self._tensor(packed.leaves), self._tensor(packed.paths),
-                    self._tensor(packed.indices), self._tensor(packed.roots))
+            placed = self._place((self._tensor(packed.leaves), self._tensor(packed.paths),
+                                  self._tensor(packed.indices), self._tensor(packed.roots)),
+                                 pipelined=True)
         verdicts: List[Any] = []
         for rep in range(max(1, int(reps))):
             self.counters.device_dispatches += 1
-            self._dispatch_async(sha256.verify_proofs, args, kind="merkle", items=len(packed),
+            self._dispatch_async(sha256.verify_proofs, placed, kind="merkle", items=len(packed),
                                  on_result=verdicts.append if rep == 0 else None)
         self._pipe.flush()
         return [bool(v) for v in verdicts[0]]

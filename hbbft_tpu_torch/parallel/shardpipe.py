@@ -1,6 +1,6 @@
 """Per-device pipelined shard dispatch — the mesh scale-out seam (the port's
-copy of the JAX package's ``parallel/shardpipe.py``; the port has no
-``MeshBackend`` yet, so only the explorer's ``ShardedMockBackend`` rides it).
+copy of the JAX package's ``parallel/shardpipe.py``; ``MeshBackend`` and the
+explorer's ``ShardedMockBackend`` ride it).
 
 The single-chip pipeline (ops/pipeline.py) keeps ONE device busy by
 deferring fetches behind a bounded FIFO.  ``MeshBackend`` used to stretch

@@ -20,6 +20,8 @@ one dispatch per kind.
 Backends: ``torch`` (the default) is ``TorchBackend()`` on the card, and
 raises without one; ``cpu`` is ``TorchBackend(device="cpu")``, the same
 code on the CPU through the kernels' plain versions (slow: real BLS);
+``mesh`` is ``MeshBackend()`` over every card of the host (raises without
+one) and ``mesh-cpu`` the same over MESH_CPU_ENTRIES entries of the CPU;
 ``mock`` is ``MockBackend()``, the protocol logic with no real crypto.
 
 Observability (hbbft_tpu_torch/obs): ``--trace PATH`` (or
@@ -61,6 +63,12 @@ from hbbft_tpu_torch.protocols.queueing_honey_badger import QueueingHoneyBadger
 from hbbft_tpu_torch.protocols.sender_queue import SenderQueue
 
 
+#: ``--backend`` choices (``make_backend``)
+BACKENDS = ("torch", "cpu", "mesh", "mesh-cpu", "mock")
+#: entries of the ``mesh-cpu`` backend's mesh (structural: one CPU)
+MESH_CPU_ENTRIES = 4
+
+
 def make_backend(name: str):
     if name == "mock":
         return MockBackend()
@@ -68,6 +76,12 @@ def make_backend(name: str):
         from hbbft_tpu_torch.ops.backend import TorchBackend
 
         return TorchBackend() if name == "torch" else TorchBackend(device="cpu")
+    if name in ("mesh", "mesh-cpu"):
+        from hbbft_tpu_torch.parallel import MeshBackend, device_mesh
+
+        if name == "mesh":
+            return MeshBackend()
+        return MeshBackend(device_mesh(MESH_CPU_ENTRIES, device="cpu"))
     raise ValueError(f"unknown backend {name!r}")
 
 
@@ -508,9 +522,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--crypto-window", type=int, default=64,
                    help="messages handled between crypto batch flushes")
     p.add_argument(
-        "--backend", choices=("torch", "cpu", "mock"), default="torch",
+        "--backend", choices=BACKENDS, default="torch",
         help="torch = TorchBackend() on the card (raises without one); cpu = "
-        "TorchBackend(device='cpu'); mock = MockBackend() (no real crypto)",
+        "TorchBackend(device='cpu'); mesh = MeshBackend() over the host's cards; "
+        "mesh-cpu = MeshBackend over CPU entries; mock = MockBackend() (no real crypto)",
     )
     p.add_argument(
         "--engine",
@@ -584,6 +599,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             interval_s=args.heartbeat if args.heartbeat else float("inf"),
             stall_timeout_s=args.stall_timeout,
             counters_fn=backend.counters.snapshot,
+            # mesh backends report per-device dispatch balance per beat
+            shard_stats_fn=getattr(backend, "shard_stats", None),
         )
     print(
         f"hbbft_tpu_torch simulation: N={args.num_nodes} f={args.num_faulty} "

@@ -35,8 +35,10 @@ Exit status: 0 when every cell passed its verdict; 1 when any failed
 
 Backends (``--backend``, one fresh backend per cell): ``torch`` (the
 default) is ``TorchBackend()`` on the card, and raises without one;
-``cpu`` is ``TorchBackend(device="cpu")``; ``mock`` is ``MockBackend()``,
-the protocol logic with no real crypto.  A ``--race-cex`` cell replays
+``cpu`` is ``TorchBackend(device="cpu")``; ``mesh`` is ``MeshBackend()``
+over the host's cards and ``mesh-cpu`` the same over CPU entries (the
+simulation CLI's ``make_backend``); ``mock`` is ``MockBackend()``, the
+protocol logic with no real crypto.  A ``--race-cex`` cell replays
 the explorer's counterexample on the targets' own ``MockBackend``
 (``analysis/schedules.py``), whatever ``--backend`` says.
 """
@@ -60,7 +62,7 @@ from hbbft_tpu_torch.net.scenarios import (
     Cell,
     run_cell,
 )
-from hbbft_tpu_torch.tools.simulation import make_backend
+from hbbft_tpu_torch.tools.simulation import BACKENDS, make_backend
 
 #: p99 bound vs the clean cell: composed conditions (a 30·N²-crank
 #: partition, an outage, overload) legitimately stretch the tail; beyond
@@ -232,9 +234,10 @@ def main(argv=None) -> int:
     ap.add_argument("--race-cex", nargs="*", default=(),
                     help="race-explorer counterexample files to fold in as cells")
     ap.add_argument(
-        "--backend", choices=("torch", "cpu", "mock"), default="torch",
+        "--backend", choices=BACKENDS, default="torch",
         help="torch = TorchBackend() on the card (raises without one); cpu = "
-        "TorchBackend(device='cpu'); mock = MockBackend() (no real crypto)",
+        "TorchBackend(device='cpu'); mesh = MeshBackend() over the host's cards; "
+        "mesh-cpu = MeshBackend over CPU entries; mock = MockBackend() (no real crypto)",
     )
     args = ap.parse_args(argv)
 

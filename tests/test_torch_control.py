@@ -1,9 +1,8 @@
 """The port's control plane (``hbbft_tpu_torch/control/``) and its hooks in
 the engine and QueueingHoneyBadger against the JAX package's.
 
-Every case of the reference's ``tests/test_control.py`` but its
-``tools/trace_report`` case (which waits for the port's ``trace_report``)
-runs in both packages through :mod:`torch_twin`: the reference test's own
+Every case of the reference's ``tests/test_control.py`` runs in both
+packages through :mod:`torch_twin`: the reference test's own
 checks hold in each (the engine and QHB hooks' checkpoint detachment, the
 ``("batch_size", B)`` input, the controller's snapshot round trip, the
 kill switch's bit-identical fixed-B replay among them), and the two runs'
@@ -15,14 +14,17 @@ runs behind ``-m slow``.
 
 import pytest
 
-from torch_twin import TwinModule, behind_slow, twin
+from torch_twin import RECORDED, TwinModule, behind_slow, twin
 
-MOD = TwinModule("test_control.py")
-SKIP = {"test_trace_report_gates_slo_compliance"}
+MOD = TwinModule("test_control.py", port_subs=[
+    ("from tools.trace_report import", "from hbbft_tpu_torch.tools.trace_report import")],
+    recorded=RECORDED + (({"hbbft_tpu": "tools.trace_report",
+                           "hbbft_tpu_torch": "hbbft_tpu_torch.tools.trace_report"},
+                          None, "diff_traffic"),))
 #: the slowest case past the file's share of the suite's time (~4 s here)
 SLOW = {"test_controller_converges_on_step_and_spike_traces"}
 CASES = behind_slow([p for name in sorted(n for n in vars(MOD.copies["hbbft_tpu"])
-                                          if n.startswith("test_") and n not in SKIP)
+                                          if n.startswith("test_"))
                      for p in MOD.params(name)], SLOW)
 
 

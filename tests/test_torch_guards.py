@@ -1,7 +1,8 @@
 """Structural guards for the PyTorch/CUDA port (``hbbft_tpu_torch``).
 
-* The port imports neither JAX nor anything of the JAX package: it keeps
-  its own copy of what it needs (checked on the AST of every module).
+* The port imports neither JAX nor anything of the JAX package, its root
+  ``tools/`` and ``examples/`` included: it keeps its own copy of what it
+  needs (checked on the AST of every module).
 * No ``try`` wraps a kernel launch, so a CUDA tensor either goes through
   its kernel or raises — there is no quiet fallback to the plain version.
 * The card is the default device: without CUDA, ``TorchBackend()``
@@ -62,6 +63,9 @@ def test_no_jax_and_no_reference_package_imports(path):
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib"), f"{path} imports {mod}"
         assert root != "hbbft_tpu", f"{path} imports the JAX package ({mod})"
+        # nor the JAX package's root entry points and tools
+        assert root not in ("tools", "examples", "bench", "__graft_entry__"), (
+            f"{path} imports the JAX package's {mod}")
 
 
 def test_no_try_around_a_kernel_launch():

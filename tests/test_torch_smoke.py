@@ -421,3 +421,25 @@ def test_analysis_phase_on_the_mock(smoke, capsys):
     assert "0 new finding(s) against the empty baseline" in out
     assert "batches as MockBackend's default schedule" in out
     json.dumps(res)
+
+
+@pytest.mark.slow
+def test_mesh_phase_on_the_cpu(smoke, capsys):
+    """The mesh phase at N=4 on CPU meshes (~200 s: the kill-switch A/B's
+    sharded arm and the sharded share verifies run one ladder or pairing a
+    mesh entry): (a) the MeshBackend[1] epoch equal to TorchBackend's, its
+    tallies summing to its placements; (b) every case of the reference's
+    mesh backend tests at a lane cap of 2; (c) the probe at 1 and 4
+    entries; the launch hooks around (a)."""
+    calls = []
+    res = smoke.phase_mesh("cpu", 0, n=4, device="cpu", cap=2, combines=16, lanes=4,
+                           before_main=lambda: calls.append("before"),
+                           after_main=lambda: calls.append("after"))
+    assert calls == ["before", "after"] and set(res) == {"main", "cases", "probe"}
+    st = res["main"]["shard_stats"]
+    assert sum(st["shard_dispatches"]) == st["shard_placements"] > 0
+    assert res["cases"]["name"] == f"MeshBackend[{smoke.MESH_ENTRIES}]"
+    assert sorted(res["cases"]["killswitch_ab"]) == [7, 8, 9]
+    assert [r["devices"] for r in res["probe"]] == list(smoke.MESH_PROBE)
+    assert "TorchBackend()'s Batch, counts and" in capsys.readouterr().out
+    json.dumps(res, default=str)

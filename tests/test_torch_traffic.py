@@ -1,9 +1,8 @@
 """The port's traffic subsystem (``hbbft_tpu_torch/traffic/``) against the
 JAX package's.
 
-Every case of the reference's ``tests/test_traffic.py`` but its
-``tools/trace_report`` case (which waits for the port's ``trace_report``)
-runs in both packages through :mod:`torch_twin`: the reference test's own
+Every case of the reference's ``tests/test_traffic.py`` runs in both
+packages through :mod:`torch_twin`: the reference test's own
 checks hold in each, and the two runs' arrival waves, proposal samples,
 admission outcomes, Batches, driver reports, tracker fingerprints and
 why-stalled reports are equal call for call, each on its own package's
@@ -20,14 +19,17 @@ from dataclasses import fields
 import pytest
 import torch
 
-from torch_twin import TwinModule, norm, twin
+from torch_twin import RECORDED, TwinModule, norm, twin
 
 torch.set_num_threads(1)
 
-MOD = TwinModule("test_traffic.py")
-SKIP = {"test_trace_report_traffic_diff_gates_both_axes"}
+MOD = TwinModule("test_traffic.py", port_subs=[
+    ("from tools.trace_report import", "from hbbft_tpu_torch.tools.trace_report import")],
+    recorded=RECORDED + (({"hbbft_tpu": "tools.trace_report",
+                           "hbbft_tpu_torch": "hbbft_tpu_torch.tools.trace_report"},
+                          None, "diff_traffic"),))
 CASES = [p for name in sorted(n for n in vars(MOD.copies["hbbft_tpu"])
-                              if n.startswith("test_") and n not in SKIP)
+                              if n.startswith("test_"))
          for p in MOD.params(name)]
 
 
