@@ -47,7 +47,9 @@ Phases (any failure exits non-zero and prints no result line):
              stacked-arm pass's 1,980 share verifies and the 10k combines;
              its verdicts, shares and plaintexts must equal the RNS arm's,
              the limb kernels must have launched and the RNS and fused
-             kernels must not have.
+             kernels must not have.  The child runs while the dynamic
+             phase does (that phase's host work is one Python thread's,
+             mostly the host's pairing checks), and is checked after it.
    sig path — the signature/coin crypto of one N=100 coin round on phase
              3's keys: the round's 10k coin-share signings (a sample equal to
              the host ``sign_share``), one 2^17-item engine chunk of share
@@ -128,10 +130,10 @@ Phases (any failure exits non-zero and prints no result line):
              stage and per batch, dispatches, device seconds by kind and the
              host split (``DynamicSplit``); all five epoch kernels launched,
              then each against its plain version at the phase's mean and
-             widest launches.  It runs after the object phase, alone.  Its
-             budget is 180 s on the card: (a) ~110, (b) ~15, (c) ~35, the
-             checks ~6, most of it the host's pairing-checked SyncKeyGen
-             decryptions and host combines.  (b) is one batch at N=10 (N=16
+             widest launches.  It runs after the object phase, beside the
+             limb arm's child process.  Its budget is 180 s on the card: (a)
+             ~110, (b) ~15, (c) ~35, the checks ~6, most of it the host's
+             pairing-checked SyncKeyGen decryptions and host combines.  (b) is one batch at N=10 (N=16
              until the traffic phase came) and (c) is at N=3 to fit that
              budget.
              ``--dynamic-only`` builds and runs this phase alone.
@@ -139,7 +141,7 @@ Phases (any failure exits non-zero and prints no result line):
              ``TorchBackend()`` held against the port's ``MockBackend``:
              (a) the simulation driver (``tools/simulation.py``) at
              BASELINE config 1, RECOVERY_SIM (N=4, f=1, 100 transactions a
-             batch, four epochs, the CLI's defaults otherwise), straight
+             batch, two epochs, the CLI's defaults otherwise), straight
              through, split by ``checkpoint()`` after RECOVERY_SPLIT epochs
              and ``Simulation.from_checkpoint`` on a fresh backend, and on
              the mock: the same batches on every node and epoch; (b) the
@@ -235,9 +237,21 @@ Phases (any failure exits non-zero and prints no result line):
              plain version at (a)'s mean and widest launches.  It runs after
              the analysis phase; ``--mesh-only`` builds and runs it alone (with
              its own ``TorchBackend()`` epoch to hold (a) against).
-   bench   — the port's kernel bench (``hbbft_tpu_torch.tools.kernel_bench``)
-             at its default widths: M muls/s of both field arms and the RNS
-             chain, TFLOP/s of the FMA probe.
+   bench   — the port's bench (``hbbft_tpu_torch.tools.bench``) in this
+             process with ``BENCH_ONLY`` set to BENCH_ROWS, the rows that
+             launch the kernels (the grouped RLC checks, the pairing check,
+             the G2 sign ladder, the coin end to end, the adversarial
+             verifies, the GLV and fused-chain A/Bs, the RS rows, the field
+             kernels through ``kernel_bench`` at its default widths, and
+             the N=16 real-crypto epochs), at the JAX bench's shapes but for
+             BENCH_PHASE_ENV's cuts: every row on ``cuda`` without an error
+             or a skip (its spot checks and A/B equalities are assertions
+             in the row), the GLV arm taking fewer field products; the M
+             muls/s and TFLOP/s lines are the ``fq_kernel`` row's.  The five
+             epoch kernels, the three plane kernels, the RNS chain, the
+             limb product and the FMA probe must launch; then the five
+             against their plain versions at the phase's mean and widest
+             launches.  ``--bench-only`` builds and runs it alone.
              Kernel launch counts are zeroed just before each of phases 3,
              limb arm (in the child), sig path, 4, coin epoch, the era
              change, object, dynamic, recovery, traffic, the analysis
@@ -253,8 +267,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``dynamic_widest_lanes``, the recovery phase, ``recovery_*``, the
    traffic phase, ``traffic_*``, with the plane kernels' time at the traffic
    epochs' widths, ``traffic_ms`` beside ``traffic_plain_ms``, and the
-   analysis phase's card run, ``analysis_*``, and the mesh phase's epoch,
-   ``mesh_*``; the plane's
+   analysis phase's card run, ``analysis_*``, the mesh phase's epoch,
+   ``mesh_*``, and the bench phase, ``bench_*``; the plane's
    kernels are held at the epoch's
    own shapes first: a whole tree build, the N² proof walk with corrupted
    roots and leaf), largest difference from the plain
@@ -1172,7 +1186,7 @@ def limb_arm_unpack(d: dict, group) -> dict:
 
 
 def limb_arm_child(in_path: str, out_path: str) -> int:
-    """The child of ``phase_limb_arm`` (HBBFT_TPU_FQ_IMPL=limb): the four
+    """The child of ``limb_arm_beside`` (HBBFT_TPU_FQ_IMPL=limb): the four
     backend phases on the parent's keys and items; writes the verdicts,
     shares, plaintexts, kernel launches and counters to ``out_path``."""
     import torch
@@ -1222,33 +1236,61 @@ def limb_arm_child(in_path: str, out_path: str) -> int:
     return 0
 
 
-def phase_limb_arm(state, n_items: int, card: str) -> dict:
-    """The threshold-decryption path with HBBFT_TPU_FQ_IMPL=limb in a child
-    process (the facade binds the field at import), on phase 3's keys and
-    items: its ciphertext and share verdicts, shares and plaintexts must
-    equal the RNS arm's, the limb kernels must have launched and the RNS
-    and fused kernels must not have."""
+def start_limb_arm(state, n_items: int) -> dict:
+    """Phase 3's keys and items for the limb arm, and the RNS arm's
+    verdicts, shares and plaintexts its child must give back: the child
+    is started by ``run_limb_arm`` (``state`` may be dropped meanwhile)."""
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    in_path = os.path.join(out_dir, "limb_arm_in.json")
-    out_path = os.path.join(out_dir, "limb_arm_out.json")
-    with open(in_path, "w") as fh:
+    run = {"in": os.path.join(out_dir, "limb_arm_in.json"),
+           "out": os.path.join(out_dir, "limb_arm_out.json"),
+           "log": os.path.join(out_dir, "limb_arm_child.log"), "items": n_items,
+           "want": {"ct_ok": state["ct_ok"], "dec_ok": state["want"][:n_items],
+                    "shares": [sh.to_bytes().hex() for sh in state["gen"]],
+                    "plains": [pt.hex() for pt in state["plains"]]}}
+    with open(run["in"], "w") as fh:
         json.dump(limb_arm_payload(state, n_items), fh)
-    cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--limb-arm", in_path, out_path]
+    return run
+
+
+@contextmanager
+def limb_arm_beside(run: dict, card: str, out: dict):
+    """The threshold-decryption path with HBBFT_TPU_FQ_IMPL=limb in a child
+    process (the facade binds the field at import) on ``start_limb_arm``'s
+    file, run while the body runs (its output goes to a log under
+    chiprun_out/, printed after it): its ciphertext and share verdicts,
+    shares and plaintexts must equal the RNS arm's, the limb kernels must
+    have launched and the RNS and fused kernels must not have.  The
+    result goes into ``out``."""
+    cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--limb-arm", run["in"],
+           run["out"]]
     t = time.perf_counter()
-    proc = subprocess.run(cmd, env=dict(os.environ, HBBFT_TPU_FQ_IMPL="limb"), timeout=900)
-    wall = time.perf_counter() - t
-    if proc.returncode != 0:
-        raise AssertionError(f"the limb arm's child exited {proc.returncode}")
-    with open(out_path) as fh:
+    with open(run["log"], "w") as child_log:
+        proc = subprocess.Popen(cmd, env=dict(os.environ, HBBFT_TPU_FQ_IMPL="limb"),
+                                stdout=child_log, stderr=subprocess.STDOUT)
+        try:
+            yield
+            t_wait = time.perf_counter()
+            rc = proc.wait(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wait = time.perf_counter() - t_wait
+    with open(run["log"]) as fh:
+        sys.stdout.write(fh.read())
+    if rc != 0:
+        raise AssertionError(f"the limb arm's child exited {rc}")
+    with open(run["out"]) as fh:
         res = json.load(fh)
-    if res["ct_ok"] != state["ct_ok"]:
+    want = run["want"]
+    if res["ct_ok"] != want["ct_ok"]:
         raise AssertionError("the limb arm's ciphertext verdicts differ from the RNS arm's")
-    if res["dec_ok"] != state["want"][:n_items]:
+    if res["dec_ok"] != want["dec_ok"]:
         raise AssertionError("the limb arm's share verdicts differ from the RNS arm's")
-    if res["shares"] != [sh.to_bytes().hex() for sh in state["gen"]]:
+    if res["shares"] != want["shares"]:
         raise AssertionError("the limb arm's decryption shares differ from the RNS arm's")
-    if res["plains"] != [pt.hex() for pt in state["plains"]]:
+    if res["plains"] != want["plains"]:
         raise AssertionError("the limb arm's plaintexts differ from the RNS arm's")
     c = res["counters"]
     if c["fused_tower_calls"] or not c["stacked_chain_pallas_calls"]:
@@ -1258,15 +1300,16 @@ def phase_limb_arm(state, n_items: int, card: str) -> dict:
         raise AssertionError(f"the limb kernels did not launch: {launched}")
     if any(launched[k] for k in EPOCH_KERNELS):
         raise AssertionError(f"RNS or fused kernels launched in the limb arm: {launched}")
+    wall = time.perf_counter() - t
     log(f"limb arm [{card}]: {len(res['ct_ok'])} ciphertext verdicts, {len(res['shares'])} "
         f"shares, {len(res['dec_ok'])} share verdicts ({res['dec_ok'].count(False)} forged) "
-        f"and {len(res['plains'])} plaintexts equal the RNS arm's; child wall {wall:.3f} s, "
-        f"seconds {json.dumps(res['seconds'])}")
+        f"and {len(res['plains'])} plaintexts equal the RNS arm's; child seconds "
+        f"{json.dumps(res['seconds'])}, waited for {wait:.3f} s after the phase beside it")
     log(f"limb arm: fq_limb_mul read a one-row operand at lane stride 0 in "
         f"{res['fq_limb_mul_broadcast_launches']} of {launched['fq_limb_mul']} launches")
-    return {**{k: res[k] for k in ("seconds", "launches", "lanes", "counters",
-                                   "fq_limb_mul_broadcast_launches")},
-            "wall_seconds": wall, "items": n_items}
+    out.update({k: res[k] for k in ("seconds", "launches", "lanes", "counters",
+                                    "fq_limb_mul_broadcast_launches")},
+               wall_seconds=wall, wait_seconds=wait, items=run["items"])
 
 
 def draw_contributions(net) -> dict:
@@ -2153,16 +2196,17 @@ def phase_dynamic(seed: int, card: str, device=None, shapes=DYNAMIC_SHAPES,
 #: (hbbft_tpu_torch/tools/simulation.py) at BASELINE config 1, the published
 #: shape of examples/simulation.rs (N=4, f=1, 100 transactions a batch, ten
 #: epochs, cut to six, the split at three, when a whole smoke with the
-#: analysis phase took ~1,175 s on a slow host, and to four, the split at
-#: two, beside the mesh phase, ~1,211 s) with the CLI's defaults for
+#: analysis phase took ~1,175 s on a slow host, to four, the split at
+#: two, beside the mesh phase, ~1,211 s, and to two, the split at one,
+#: beside the bench phase, ~1,217 s) with the CLI's defaults for
 #: the rest: 200 ten-byte transactions queued a node, λ = 100 ms, 2,000
 #: KB/s, 1 ms a message, a 64-message crypto window, seed 0; the split run
 #: checkpoints after RECOVERY_SPLIT epochs and resumes in a fresh
 #: Simulation on a fresh backend
 RECOVERY_SIM = dict(num_nodes=4, num_faulty=1, batch_size=100, tx_size=10, txns=200,
-                    epochs=4, lam=100.0, bandwidth=2000.0, cpu_factor=1.0, crypto_window=64,
+                    epochs=2, lam=100.0, bandwidth=2000.0, cpu_factor=1.0, crypto_window=64,
                     seed=0)
-RECOVERY_SPLIT = 2
+RECOVERY_SPLIT = 1
 #: (b) the crash axis, the schedule of the reference's
 #: test_crashes.py::test_crash_parks_traffic_and_restart_catches_up:
 #: SenderQueue ⊃ QueueingHoneyBadger, N=4, f=0, batch size 3, net seed 5,
@@ -2755,6 +2799,20 @@ MESH_DEC_SHARES = 16  # (b): shares of one ciphertext, one of them forged
 MESH_LANES = 16  # (b): sharded_product2's lanes and sharded_combine_g2's shares
 MESH_PROBE = (1, 4)  # (c): mesh_probe's entries
 MESH_PROBE_CHUNKS = 64
+#: the bench phase: the rows of hbbft_tpu_torch.tools.bench that launch
+#: the kernels, at the JAX bench's shapes; BENCH_PHASE_ENV cuts only the
+#: timed repetitions (one timed call or pass a row, one timed N=16 epoch)
+#: through the rows' own knobs, to fit the phase in 60 s (PERF.md §4), and
+#: runs fq_kernel at the kernel bench's default widths, since the row is
+#: the smoke's kernel bench
+BENCH_ROWS = ("rlc_dec", "rlc_sig", "share_verify", "g2_sign", "coin_e2e",
+              "rlc_dec_adversarial", "glv_ladder", "fused_chain_ab", "rs_encode", "rs_plane_ab",
+              "fq_kernel", "array_n16_tpu")
+BENCH_PHASE_ENV = {"BENCH_FQ_LANES": "4096,16384,65536,262144", "BENCH_ITERS": "1",
+                   "BENCH_RS_PLANE_ITERS": "1", "BENCH_ADV_ITERS": "1", "BENCH_GLV_ITERS": "1",
+                   "BENCH_ARRAY16_EPOCHS": "1"}
+#: the kernels the bench phase must launch
+BENCH_PHASE_KERNELS = EPOCH_KERNELS + RS_KERNELS + BENCH_KERNELS + ("fq_limb_mul",)
 
 
 @contextmanager
@@ -3031,6 +3089,52 @@ def phase_mesh(card: str, seed: int, n: int = N, ref=None, device=None, before_m
             raise AssertionError(f"mesh_probe at {k} entries: {row}")
         res["probe"].append(row)
     return res
+
+
+def phase_bench(card: str, device=None, env=BENCH_PHASE_ENV, before=None, after=None) -> dict:
+    """The bench phase: ``hbbft_tpu_torch.tools.bench`` in this process with
+    ``BENCH_ONLY`` set to BENCH_ROWS and the knobs ``env``, its rows file
+    under chiprun_out/.  Every row must emit with the phase's platform and
+    without an error or a skip (a row's spot checks and A/B equalities are
+    assertions in the row, so a failed one is an error row); the GLV arm
+    must cut the field products a ladder takes.  ``before()`` runs just
+    before the bench, ``after()`` just after."""
+    from hbbft_tpu_torch.tools import bench
+
+    plat = "cuda" if device is None else device
+    path = os.path.join(ROOT, "chiprun_out", "chip_smoke_bench_rows.json")
+    settings = {**env, "BENCH_ONLY": ",".join(BENCH_ROWS), "BENCH_ROWS_PATH": path,
+                "BENCH_DEVICE": plat}
+    saved = {k: os.environ.get(k) for k in settings}
+    os.environ.update(settings)
+    try:
+        if before is not None:
+            before()
+        t = time.perf_counter()
+        rc = bench.main([])
+        secs = time.perf_counter() - t
+        if after is not None:
+            after()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    with open(path) as fh:
+        got = json.load(fh)["rows"]
+    bad = [r for r in got if "error" in r or "skipped" in r or r.get("platform") != plat]
+    if rc != 0 or bad or len(got) != len(BENCH_ROWS):
+        raise AssertionError(f"the bench phase's rows (rc {rc}): {len(got)} of {len(BENCH_ROWS)}, "
+                             f"at fault {json.dumps(bad)[:2000]}")
+    by = {r["metric"]: r for r in got}
+    glv = by["glv_ladder_ab"]
+    if not glv["field_mul_reduction"] > 1.0:
+        raise AssertionError(f"glv_ladder: the GLV arm took no fewer field products: {glv}")
+    fq = by["fq_mul_throughput"]
+    return {"seconds": secs, "rows": got, "row_seconds": {r["metric"]: r["row_seconds"]
+                                                          for r in got},
+            "kernel_bench": {k: fq[k] for k in ("chain", "probe", "rows")}}
 
 
 def same(name: str, got, want) -> float:
@@ -3637,6 +3741,52 @@ def run_mesh(args, dev, rng, errs: dict, card: str, secs: dict, ref=None) -> dic
     return res
 
 
+def run_bench(args, dev, rng, errs: dict, card: str, secs: dict) -> dict:
+    """The bench phase, the kernel launch counts zeroed just before it and
+    read just after (BENCH_PHASE_KERNELS must have launched), then the five
+    epoch kernels against their plain versions at the phase's mean and
+    widest launches."""
+    import torch
+
+    from hbbft_tpu_torch.ops import gf256 as G, sha256 as S
+
+    seen: dict = {}
+
+    def after():
+        seen["all_launches"] = _launch_counts(kernel_fns())
+        seen["launches"], seen["lanes"] = read_launches(
+            "the bench phase's rows", BENCH_PHASE_KERNELS)
+        seen["widest"] = {**widest_launches(), "gf256_matmul": G.gf256_matmul.widest,
+                          "sha256_tagged": S.sha256_tagged.widest,
+                          "sha256_proofs": S.sha256_proofs.widest}
+
+    t = time.perf_counter()
+    res = phase_bench(card, before=reset_launches, after=after)
+    torch.cuda.synchronize()
+    secs["bench_phase"] = time.perf_counter() - t
+    res.update(seen)
+    t = time.perf_counter()
+    res["checked_widths"] = check_path_widths(
+        dev, rng, errs, res["launches"], res["lanes"], res["widest"], "bench",
+        names=EPOCH_KERNELS)
+    secs["bench_checks"] = time.perf_counter() - t
+    return res
+
+
+def log_bench(res: dict, card: str) -> None:
+    kb = res["kernel_bench"]
+    for r in kb["rows"]:
+        log(f"kernel_bench {r['kernel']} lanes={r['lanes']}: {r['ms']:.4f} ms/launch, "
+            f"{r['m_muls_per_s']:.2f} M muls/s [{card}]")
+    p = kb["probe"]
+    log(f"kernel_bench fma_probe {p['shape'][0]}x{p['shape'][1]} x {p['iters']} steps: "
+        f"{p['ms']:.4f} ms, {p['tflops']:.3f} TFLOP/s f32 = {p['share_of_peak']:.1%} of peak "
+        f"[{card}]")
+    log(f"bench [{card}]: {res['seconds']:.3f} s, row seconds {json.dumps(res['row_seconds'])}")
+    log(f"bench launches [{card}]: {json.dumps(res['all_launches'])}; lanes "
+        f"{json.dumps(res['lanes'])}; widest {json.dumps(res['widest'])}")
+
+
 def log_mesh(res: dict, card: str) -> None:
     a, b = res["main"], res["cases"]
     log(f"mesh [{card}]: (a) {a['name']} N={N} epoch {a['epoch']['seconds']:.3f} s, "
@@ -3745,11 +3895,15 @@ def main(argv=None) -> int:
                       help="build the kernels, then run the mesh phase (an N=100 epoch on "
                            "MeshBackend[1] against TorchBackend()'s, the mesh backend's cases "
                            "on four entries of the card, mesh_probe) and its checks alone")
+    only.add_argument("--bench-only", action="store_true",
+                      help="build the kernels, then run the bench phase (the rows of "
+                           "hbbft_tpu_torch.tools.bench that launch the kernels) and its "
+                           "checks alone")
     only.add_argument("--analysis-only", action="store_true",
                       help="build the kernels, then run the analysis phase (lint, the "
                            "explorer on the mock, the explorer's pipeline target on the "
                            "card) and its checks alone")
-    # the limb arm's child process (phase_limb_arm starts it)
+    # the limb arm's child process (limb_arm_beside starts it)
     ap.add_argument("--limb-arm", nargs=2, metavar=("IN", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -3801,7 +3955,8 @@ def main(argv=None) -> int:
             (args.recovery_only, "recovery", run_recovery, log_recovery),
             (args.traffic_only, "traffic", run_traffic, log_traffic),
             (args.analysis_only, "analysis", run_analysis, log_analysis),
-            (args.mesh_only, "mesh", run_mesh, log_mesh)) if flag]
+            (args.mesh_only, "mesh", run_mesh, log_mesh),
+            (args.bench_only, "bench", run_bench, log_bench)) if flag]
         if alone:  # one phase and its checks, after the build
             (name, run, log_fn), = alone
             res = run(args, dev, rng, {"fq_rns_mul": 0.0, "fq_rns_pow": 0.0}, card, secs)
@@ -3839,9 +3994,7 @@ def main(argv=None) -> int:
         stacked_res = phase_stacked_arm(state, STACKED_ITEMS)
         secs["stacked_arm"] = time.perf_counter() - t
 
-        t = time.perf_counter()
-        limb_res = phase_limb_arm(state, LIMB_ARM_ITEMS, card)
-        secs["limb_arm"] = time.perf_counter() - t
+        limb_run = start_limb_arm(state, LIMB_ARM_ITEMS)
 
         sig_backend = TorchBackend()
         reset_launches()
@@ -3907,18 +4060,16 @@ def main(argv=None) -> int:
         peaks.append(torch.cuda.max_memory_allocated(dev))
         era_res = run_era(args, dev, rng, errs, card, secs)
         object_res = run_object(args, dev, rng, errs, card, secs)
-        dynamic_res = run_dynamic(args, dev, rng, errs, card, secs)
+        limb_res: dict = {}
+        with limb_arm_beside(limb_run, card, limb_res):
+            dynamic_res = run_dynamic(args, dev, rng, errs, card, secs)
+        secs["limb_arm_wait"] = limb_res["wait_seconds"]
         recovery_res = run_recovery(args, dev, rng, errs, card, secs)
         traffic_res = run_traffic(args, dev, rng, errs, card, secs)
         analysis_res = run_analysis(args, dev, rng, errs, card, secs)
         mesh_res = run_mesh(args, dev, rng, errs, card, secs, ref=epoch_res["epochs"][0])
 
-        reset_launches()
-        t = time.perf_counter()
-        bench_res = kernel_bench.run(dev, log=log)
-        torch.cuda.synchronize()
-        secs["bench"] = time.perf_counter() - t
-        bench_launches, bench_lanes = read_launches("the kernel bench", BENCH_KERNELS)
+        bench_res = run_bench(args, dev, rng, errs, card, secs)
 
         t = time.perf_counter()
         rows = kernel_rows(dev, rng, errs, launches, lanes, widest_pow)
@@ -3928,8 +4079,8 @@ def main(argv=None) -> int:
             r["era_launches"] = era_res["era_change"]["launches"][r["name"]]
         rows += rs_plane_rows(dev, rng, errs, launches, lanes)
         rows += limb_kernel_rows(dev, rng, errs, limb_res["launches"], limb_res["lanes"])
-        rows += bench_kernel_rows(dev, rng, args.seed, errs, bench_launches, bench_lanes,
-                                  bench_res)
+        rows += bench_kernel_rows(dev, rng, args.seed, errs, bench_res["launches"],
+                                  bench_res["lanes"], bench_res["kernel_bench"])
         for r in rows:  # every kernel's launches on the object runtime's phase
             r["object_launches"] = object_res["all_launches"][r["name"]]
             if r["name"] in object_res["widest"]:
@@ -3938,7 +4089,7 @@ def main(argv=None) -> int:
                 r["object_widest_lanes"] = object_res["widest"][r["name"]]
             for tag, res in (("dynamic", dynamic_res), ("recovery", recovery_res),
                              ("traffic", traffic_res), ("analysis", analysis_res),
-                             ("mesh", mesh_res)):
+                             ("mesh", mesh_res), ("bench", bench_res)):
                 r[f"{tag}_launches"] = res["all_launches"][r["name"]]
                 if r["name"] in res["widest"]:
                     r[f"{tag}_mean_lanes"] = res["lanes"][r["name"]] / res["launches"][r["name"]]
@@ -3946,6 +4097,8 @@ def main(argv=None) -> int:
             # every row names the mesh phase's lanes (null: not launched there)
             r.setdefault("mesh_mean_lanes", None)
             r.setdefault("mesh_widest_lanes", None)
+            r.setdefault("bench_mean_lanes", None)
+            r.setdefault("bench_widest_lanes", None)
         for r in rows:  # the plane kernels timed at the traffic epochs' widths too
             for pr in traffic_res["plane_rows"]:
                 if pr["name"] == r["name"]:
@@ -4004,6 +4157,7 @@ def main(argv=None) -> int:
     log_traffic(traffic_res, card)
     log_analysis(analysis_res, card)
     log_mesh(mesh_res, card)
+    log_bench(bench_res, card)
     log(f"phase seconds [{card}]: {json.dumps(secs)}")
     log(f"path device_dispatches={c.device_dispatches} pairing_checks={c.pairing_checks} "
         f"rlc_groups={c.rlc_groups} peak_memory_bytes={result['peak_memory_bytes']} [{card}]")

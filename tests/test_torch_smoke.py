@@ -212,6 +212,21 @@ def test_limb_arm_payload_roundtrip(smoke):
         ({i: gen[p * n + i].to_bytes() for i in range(f + 1)}, cts[p]) for p in range(n)]
 
 
+def test_limb_arm_runs_beside_a_phase(smoke, tmp_path, capsys):
+    """The limb arm's child runs while the phase in the block does, and its
+    failure is reported after it, with the child's output: here the child
+    takes the card by default, which this host lacks."""
+    run = {"in": str(tmp_path / "in.json"), "out": str(tmp_path / "out.json"),
+           "log": str(tmp_path / "child.log"), "items": 0, "want": {}}
+    (tmp_path / "in.json").write_text("{}")
+    ran = []
+    with pytest.raises(AssertionError, match="the limb arm's child exited 1"):
+        with smoke.limb_arm_beside(run, "cpu", {}):
+            ran.append(True)
+    assert ran == [True] and not (tmp_path / "out.json").exists()
+    assert "Traceback" in capsys.readouterr().out
+
+
 def test_era_phase_at_a_tiny_size(smoke, capsys):
     """The era phase and the device MSM's checks on the CPU backend at N=4
     (the card runs the same code at N=24, and at N=100 with ``--era-n``):
@@ -443,3 +458,39 @@ def test_mesh_phase_on_the_cpu(smoke, capsys):
     assert [r["devices"] for r in res["probe"]] == list(smoke.MESH_PROBE)
     assert "TorchBackend()'s Batch, counts and" in capsys.readouterr().out
     json.dumps(res, default=str)
+
+
+#: the bench phase's rows at tiny shapes on the CPU, each cut through the
+#: row's own knob (array_n16_tpu has none for N: one warm epoch at N=16 on
+#: the plain versions, forced onto the CPU by its backend knob)
+BENCH_TINY_ENV = {
+    "BENCH_ITERS": "1", "BENCH_DEC_GROUPS": "2", "BENCH_DEC_K": "2", "BENCH_RLC_GROUPS": "2",
+    "BENCH_RLC_K": "2", "BENCH_BATCH": "2", "BENCH_SIGN_BATCH": "2", "BENCH_COIN_N": "4",
+    "BENCH_COIN_FLIPS": "2", "BENCH_ADV_GROUPS": "2", "BENCH_ADV_K": "4", "BENCH_ADV_ITERS": "1",
+    "BENCH_GLV_BATCH": "8", "BENCH_GLV_ITERS": "1", "BENCH_FUSED_GROUPS": "2",
+    "BENCH_RS_SHARD": "64", "BENCH_RS_ITERS": "1", "BENCH_RS_PLANE_BLOCK": "64",
+    "BENCH_RS_PLANE_ITERS": "1", "BENCH_FQ_LANES": "8,16", "BENCH_FQ_CHAIN": "2",
+    "BENCH_FQ_PROBE_SHAPE": "4x8", "BENCH_FQ_PROBE_ITERS": "10",
+    "BENCH_ARRAY16_BACKEND": "torch", "BENCH_ARRAY16_EPOCHS": "0",
+}
+
+
+@pytest.mark.slow
+def test_bench_phase_on_the_cpu(smoke, capsys):
+    """The bench phase's rows at tiny shapes on the CPU (~4 minutes, most
+    of it the N=16 real-crypto epoch on the plain versions): every row
+    emits on the CPU without an error or a skip, the GLV arm cuts the
+    field products, the fq_kernel row carries the kernel bench's rows; the
+    launch hooks around the bench."""
+    calls = []
+    res = smoke.phase_bench("cpu", device="cpu", env=BENCH_TINY_ENV,
+                            before=lambda: calls.append("before"),
+                            after=lambda: calls.append("after"))
+    assert calls == ["before", "after"]
+    assert len(res["rows"]) == len(smoke.BENCH_ROWS)
+    assert all(r["platform"] == "cpu" for r in res["rows"])
+    assert [r["kernel"] for r in res["kernel_bench"]["rows"]] == [
+        "fq_rns_mul", "fq_limb_mul", "fq_rns_chain"] * 2
+    assert res["kernel_bench"]["probe"]["shape"] == [4, 8]
+    json.dumps(res)
+    capsys.readouterr()
